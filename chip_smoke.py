@@ -12,12 +12,25 @@ file; fails without them. In order:
 3. kernel phases: each kernel against its plain PyTorch version on the
    same seeded inputs at the main path's shapes (integer outputs must be
    identical), with both times;
-4. slice phase: the flagship VoteNetNesie (seeded random weights, BN
+   FPS has two kernels: ``fps.cu`` (one block per row, B > 16) and
+   ``fps_cluster.cu`` (one thread-block cluster per row, B <= 16), both
+   timed at each of the cluster kernel's shapes;
+4. eval path: the flagship VoteNetNesie (seeded random weights, BN
    running stats randomised) runs the batched eval forward at
-   B=32 x 40000 x 4 and serves three ``Detector`` requests, with every
-   kernel's launch count read around that run; then one scene's GPU
-   forward is held against the same forward on the CPU, which runs the
-   plain versions.
+   B=32 x 40000 x 4 and serves three ``Detector`` requests (B=1), with
+   every kernel's launch count set to 0 just before and read just after;
+   then one scene's GPU forward is held against the same forward on the
+   CPU, which runs the plain versions;
+5. training path, counts set to 0 before and read after: five timed
+   teacher-student semi steps of the flagship at the reference shape
+   (4 labeled + 8 unlabeled scenes x 40000 x 4, 64 GT slots with 8 boxes
+   per labeled scene) after one warm-up, then five supervised steps at
+   B=8 after one warm-up, with the losses, gradients, the parameter and
+   BN-statistic updates and the EMA teacher checked;
+6. one semi step of a narrow model (1 + 2 scenes of 4096 points) on the
+   card and on the CPU from the same weights and inputs: identical FPS
+   and ball-query indices, loss terms within atol 1e-4 + rtol 1e-3,
+   gradient cosine above 0.999.
 
 Prints ``{"kernels": [...]}``, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -34,6 +47,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
 
 B, N_POINTS = 32, 40000
 # the main path's kernel shapes (flagship VoteNetNesie, sample_mod="seed")
@@ -42,10 +56,35 @@ AGG = dict(n=1024, m=256, radius=0.3, k=16)
 SIDE_GRID = dict(m=256 * 96, n=1024)  # side-grid queries vs seeds
 FP1 = dict(m=1024, n=512)
 LARGE_FPS = dict(b=2, scenes_per_row=5, m=2048)  # rows of 200000 points
+# the cluster FPS kernel's shapes: (what, B, N, M)
+K2_SHAPES = (("a Detector request", 1, N_POINTS, 2048),
+             ("semi-step SA1", 12, N_POINTS, 2048),
+             ("vote-mode aggregation", 12, 1024, 256),
+             ("the single-row regime", 2, 200000, 2048))
+K2_MAIN = 1  # the shape reported in the kernels line
 # CPU-vs-GPU rule for one scene: float outputs within atol + rtol*|x|,
 # and a proposal agrees when all its box, objectness and IoU outputs do
 ATOL = RTOL = 1e-3
 MIN_AGREE = 0.95
+# the semi step of the reference recipe (configs/...train-010.py:
+# samples_per_gpu=4, ratio=2), and the supervised step
+SEMI = dict(n_labeled=4, n_unlabeled=8, max_gt=64, n_boxes=8, scans=64)
+SUP_B = 8
+TIMED_STEPS = 5
+# GPU-vs-CPU training step: the narrow widths of tests/test_torch_slice.py
+TINY = dict(
+    reg_max=8,
+    num_proposal=128,
+    num_points=(256, 128, 128, 128),
+    num_samples=(8, 8, 4, 4),
+    sa_channels=((16, 16, 32), (32, 32, 32), (32, 32, 32), (32, 32, 32)),
+    fp_channels=((32, 32), (32, 32)),
+)
+TINY_POINTS = 4096
+TRAIN_ATOL, TRAIN_RTOL, MIN_COSINE = 1e-4, 1e-3, 0.999
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense fp32, HBM3)
+FP32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def nvidia_smi_line() -> str:
@@ -54,32 +93,6 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def make_scene(rng: np.random.Generator, n: int) -> np.ndarray:
-    """An indoor-like cloud: floor, four walls and box-shaped objects,
-    points on their surfaces. (n, 3) float32, metres."""
-    room = rng.uniform([4.0, 4.0, 2.5], [8.0, 8.0, 3.0])
-    n_floor, n_wall = int(0.3 * n), int(0.3 * n)
-    n_obj = n - n_floor - n_wall
-    floor = rng.uniform([0, 0, 0], [room[0], room[1], 0.02], (n_floor, 3))
-    wall = rng.uniform([0, 0, 0], room, (n_wall, 3))
-    side = rng.integers(0, 4, n_wall)
-    wall[side == 0, 0] = 0.0
-    wall[side == 1, 0] = room[0]
-    wall[side == 2, 1] = 0.0
-    wall[side == 3, 1] = room[1]
-    k = int(rng.integers(6, 13))
-    size = rng.uniform(0.3, 1.5, (k, 3))
-    lo = rng.uniform(0, 1, (k, 3)) * (room - size)
-    lo[:, 2] = 0.0
-    which = rng.integers(0, k, n_obj)
-    p = rng.uniform(0, 1, (n_obj, 3))
-    axis = rng.integers(0, 3, n_obj)  # snap one coordinate onto a face
-    p[np.arange(n_obj), axis] = rng.integers(0, 2, n_obj)
-    obj = lo[which] + p * size[which]
-    pts = np.concatenate([floor, wall, obj]) + rng.normal(0, 0.005, (n, 3))
-    return pts[rng.permutation(n)].astype(np.float32)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -121,6 +134,227 @@ def kernel_phase(name, kernel, plain, reps=10, plain_reps=2):
     return err, ms, plain_ms
 
 
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take (ms) and what bounds it: fp32
+    operations at the card's peak, or each input read and each output
+    written once at its memory rate."""
+    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def fps_bound(b: int, n: int, m: int):
+    """D-FPS: per step and point 3 subtractions, 3 products, 2 sums, one
+    min and one compare of the argmax; reads the coordinates, writes the
+    indices."""
+    return bound(10.0 * b * n * (m - 1), 12.0 * b * n + 4.0 * b * m)
+
+
+def ball_query_bound(idx, n: int):
+    """Ball query: 8 operations per (center, point) pair up to the K-th
+    hit, the point count this run's data needs (a center with fewer than
+    K hits scans all n); reads both point sets, writes the indices."""
+    import torch
+
+    k = idx.shape[-1]
+    last, first = idx[..., -1].long(), idx[..., 0].long()
+    scanned = torch.where(last > first, last + 1, n).double().sum().item()
+    b, m = idx.shape[:2]
+    return bound(8.0 * scanned, 12.0 * b * (n + m) + 4.0 * idx.numel())
+
+
+def three_nn_bound(b: int, m: int, n: int):
+    """Three-NN: 8 operations per (query, source) pair for the distance
+    and one compare; reads both point sets, writes 3 indices a query."""
+    return bound(9.0 * b * m * n, 12.0 * b * (m + n) + 12.0 * b * m)
+
+
+def timed_steps(run_step, n: int):
+    """One warm-up and ``n`` timed calls of ``run_step`` (host clock around
+    work that ends in a synchronize); returns (times ms, last result)."""
+    import torch
+
+    out = run_step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = run_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def check_finite(metrics: dict, model, what: str) -> None:
+    import torch
+
+    for k, v in metrics.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{what}: {k} = {v.item()} is not finite")
+    for name, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{what}: gradient of {name} missing or not "
+                                 "finite")
+
+
+def training_path(dev) -> dict:
+    """The flagship's semi and supervised steps on the card; every check
+    of the training phase. Returns the numbers it printed."""
+    import torch
+
+    from nesie_tpu_torch.data.synthetic import semi_batch
+    from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_
+    from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
+    from nesie_tpu_torch.train.state import (
+        create_train_state,
+        make_lr_schedule,
+    )
+    from nesie_tpu_torch.train.step import make_supervised_train_step
+
+    model = VoteNetNesie()  # flagship width and depth
+    init_weights_(model, torch.Generator().manual_seed(3))
+    state = create_train_state(model, make_lr_schedule(8e-3, 1000),
+                               device=dev)
+    rng = np.random.default_rng(7)
+    batch = semi_batch(rng, SEMI["n_labeled"], SEMI["n_unlabeled"],
+                        N_POINTS, SEMI["max_gt"], SEMI["n_boxes"], dev)
+    ulb = [UlbState.create(SEMI["scans"], 18, device=dev)]
+    step = make_semi_train_step(SEMI["n_labeled"], SEMI["scans"])
+    gen = torch.Generator(dev).manual_seed(2)
+    conv = state.model.backbone.SA_modules[0].mlps[0].layer0
+    watched = {"SA1 conv weight": conv.conv.weight,
+               "SA1 BN running mean": conv.bn.running_mean}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+
+    def semi_step():
+        ulb[0], metrics = step(state, ulb[0], batch, generator=gen)
+        return metrics
+
+    b_semi = SEMI["n_labeled"] + SEMI["n_unlabeled"]
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = timed_steps(semi_step, TIMED_STEPS - 1)
+    # the last step once more with the teacher watched: EMA rule
+    teacher_w = state.teacher.backbone.SA_modules[0].mlps[0].layer0.conv.weight
+    e0 = teacher_w.detach().clone()
+    t0 = time.perf_counter()
+    metrics = semi_step()
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_finite(metrics, state.model, "semi step")
+    m = min(1e-3, (1.0 + state.step) / (10.0 + state.step))
+    want = (1.0 - m) * e0 + m * conv.conv.weight.detach()
+    if not torch.allclose(teacher_w, want, rtol=1e-5, atol=1e-7):
+        raise AssertionError("the teacher did not move by the EMA rule")
+    for k, v in watched.items():
+        if torch.equal(v.detach(), before[k]):
+            raise AssertionError(f"the student's {k} did not move")
+    ms = float(np.median(times))
+    terms = {k: round(v.item(), 6) for k, v in metrics.items()}
+    print(f"[train] semi step {SEMI['n_labeled']} labeled + "
+          f"{SEMI['n_unlabeled']} unlabeled x {N_POINTS} x 4: median "
+          f"{ms:.3f} ms over {len(times)} steps ({times}), "
+          f"{b_semi / ms * 1e3:.2f} scenes/s, peak device memory "
+          f"{peak:.3f} GiB")
+    print(f"[train] semi step terms (last step): {terms}")
+    print(f"[train] student and BN running stats moved; teacher moved by "
+          f"the EMA rule (m={m:.6f}, step {state.step})")
+
+    sup_batch = dict(points=batch["points_raw_s"][:SUP_B],
+                     gt_boxes=batch["gt_boxes"][:SUP_B],
+                     gt_labels=batch["gt_labels"][:SUP_B],
+                     gt_valid=batch["gt_valid"][:SUP_B],
+                     aug=batch["aug_s"].slice(0, SUP_B))
+    sup = make_supervised_train_step()
+    sup_times, sup_metrics = timed_steps(
+        lambda: sup(state, sup_batch, generator=gen), TIMED_STEPS)
+    check_finite(sup_metrics, state.model, "supervised step")
+    sup_ms = float(np.median(sup_times))
+    print(f"[train] supervised step B={SUP_B} x {N_POINTS} x 4: median "
+          f"{sup_ms:.3f} ms over {len(sup_times)} steps ({sup_times}), "
+          f"{SUP_B / sup_ms * 1e3:.2f} scenes/s; terms "
+          f"{ {k: round(v.item(), 6) for k, v in sup_metrics.items()} }")
+    return dict(semi_ms=ms, sup_ms=sup_ms, peak_gib=peak)
+
+
+def gpu_vs_cpu_training_step(dev) -> None:
+    """One semi step of a narrow model on the card (kernels) and on the
+    CPU (plain versions) from the same weights, inputs and jitter noise."""
+    import copy
+
+    import torch
+
+    import nesie_tpu_torch.nn.pointnet2 as pn2
+    from nesie_tpu_torch.data.synthetic import semi_batch
+    from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_, randomize_bn_
+    from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
+    from nesie_tpu_torch.train.state import (
+        create_train_state,
+        make_lr_schedule,
+    )
+
+    model = VoteNetNesie(**TINY)
+    gen = torch.Generator().manual_seed(4)
+    init_weights_(model, gen)
+    randomize_bn_(model, gen)
+    cpu_batch = semi_batch(np.random.default_rng(11), 1, 2, TINY_POINTS,
+                            SEMI["max_gt"], SEMI["n_boxes"], "cpu")
+    b = 3
+    noise = tuple(torch.randn((b, TINY["num_proposal"], 3), generator=gen)
+                  for _ in range(2))
+    runs = {}
+    for where in ("cuda", "cpu"):
+        device = dev if where == "cuda" else torch.device("cpu")
+        state = create_train_state(copy.deepcopy(model),
+                                   make_lr_schedule(1e-3, 1000),
+                                   device=device)
+        batch = {k: v.to(device) for k, v in cpu_batch.items()}
+        ulb = UlbState.create(SEMI["scans"], 18, device=device)
+        indices = []
+        fps, bq = pn2.furthest_point_sample, pn2.ball_query
+
+        def rec_fps(*a, **kw):
+            out = fps(*a, **kw)
+            indices.append(("fps", out.cpu()))
+            return out
+
+        def rec_bq(*a, **kw):
+            out = bq(*a, **kw)
+            indices.append(("ball_query", out.cpu()))
+            return out
+
+        pn2.furthest_point_sample, pn2.ball_query = rec_fps, rec_bq
+        try:
+            _, metrics = make_semi_train_step(1, SEMI["scans"])(
+                state, ulb, batch, noise=tuple(n.to(device) for n in noise))
+        finally:
+            pn2.furthest_point_sample, pn2.ball_query = fps, bq
+        grad = torch.cat([p.grad.flatten().double().cpu()
+                          for p in state.model.parameters()])
+        runs[where] = (indices, {k: v.item() for k, v in metrics.items()},
+                       grad)
+    (gi, gm, gg), (ci, cm, cg) = runs["cuda"], runs["cpu"]
+    if len(gi) != len(ci) or any(
+            a[0] != b[0] or not torch.equal(a[1], b[1]) for a, b in zip(gi, ci)):
+        raise AssertionError("FPS or ball-query indices of the training step "
+                             "differ between the card and the CPU")
+    worst = 0.0
+    for k, v in cm.items():
+        diff = abs(gm[k] - v)
+        worst = max(worst, diff)
+        if diff > TRAIN_ATOL + TRAIN_RTOL * abs(v):
+            raise AssertionError(f"training step {k}: card {gm[k]} vs CPU {v}")
+    cos = torch.nn.functional.cosine_similarity(gg, cg, dim=0).item()
+    if not cos > MIN_COSINE:
+        raise AssertionError(f"gradient cosine card vs CPU {cos} <= "
+                             f"{MIN_COSINE}")
+    print(f"[train] card vs CPU, one semi step of the narrow model (1+2 "
+          f"scenes x {TINY_POINTS}): {len(gi)} FPS / ball-query index "
+          f"tensors identical; loss terms within atol {TRAIN_ATOL} + rtol "
+          f"{TRAIN_RTOL} (max |diff| {worst:.3e}); gradient cosine "
+          f"{cos:.8f}")
+
+
 def main() -> int:
     if not (ROOT / "nesie_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the nesie_tpu_torch sources are not beside "
@@ -134,11 +368,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from nesie_tpu_torch.apis import init_detector
     from nesie_tpu_torch.data import io
+    from nesie_tpu_torch.data.synthetic import make_scene
     from nesie_tpu_torch.eval.postprocess import decode_and_nms
     from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_, randomize_bn_
     from nesie_tpu_torch.ops import _build, pointops
     from nesie_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_ref
-    from nesie_tpu_torch.ops.fps import fps_cuda, fps_ref
+    from nesie_tpu_torch.ops.fps import (
+        fps_cluster_cuda,
+        fps_cluster_plan,
+        fps_cuda,
+        fps_ref,
+    )
     from nesie_tpu_torch.ops.three_nn import three_nn_cuda, three_nn_ref
 
     # ---- 1. toolchain -------------------------------------------------
@@ -153,7 +393,7 @@ def main() -> int:
           f"{nvcc.stdout.strip().splitlines()[-1]}")
     print(f"[toolchain] tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
 
     # ---- 2. build -----------------------------------------------------
@@ -167,30 +407,51 @@ def main() -> int:
     rng = np.random.default_rng(0)
     scenes = [make_scene(rng, N_POINTS) for _ in range(B)]
     xyz = torch.from_numpy(np.stack(scenes)).to(dev)  # (B, 40000, 3)
-    results = {}
+    results, bounds, library = {}, {}, dict.fromkeys(_build.KERNELS)
 
     fps_idx = fps_cuda(xyz, SA1["m"])
     results["fps"] = kernel_phase(
         f"fps B={B} N={N_POINTS} M={SA1['m']}",
         lambda: fps_cuda(xyz, SA1["m"]), lambda: fps_ref(xyz, SA1["m"]),
         reps=5, plain_reps=1)
+    bounds["fps"] = fps_bound(B, N_POINTS, SA1["m"])
+    centers = pointops.gather_points(xyz, fps_idx).contiguous()
+
     big = torch.from_numpy(np.stack([
         np.concatenate([make_scene(rng, N_POINTS)
                         for _ in range(LARGE_FPS["scenes_per_row"])])
         for _ in range(LARGE_FPS["b"])])).to(dev)
-    kernel_phase(
-        f"fps B={big.shape[0]} N={big.shape[1]} M={LARGE_FPS['m']} "
-        "(the TPU's single-row regime)",
-        lambda: fps_cuda(big, LARGE_FPS["m"]),
-        lambda: fps_ref(big, LARGE_FPS["m"]), reps=2, plain_reps=1)
-    del big
+    _, vb, vn, _ = K2_SHAPES[2]  # votes: seeds moved by small offsets
+    vote_like = (centers[:vb, :vn] + 0.05 * torch.randn(
+        (vb, vn, 3), generator=torch.Generator(dev).manual_seed(3),
+        device=dev)).contiguous()
+    k2_inputs = (xyz[:K2_SHAPES[0][1]], xyz[:K2_SHAPES[1][1]], vote_like, big)
+    for i, ((what, b, n, m), x) in enumerate(zip(K2_SHAPES, k2_inputs)):
+        assert tuple(x.shape) == (b, n, 3), (what, x.shape)
+        plan = fps_cluster_plan(b, n)
+        name = f"fps_cluster B={b} N={n} M={m} ({what})"
+        res = kernel_phase(name, lambda: fps_cluster_cuda(x, m),
+                           lambda: fps_ref(x, m),
+                           reps=3 if n > N_POINTS else 5, plain_reps=1)
+        if not torch.equal(fps_cuda(x, m), fps_cluster_cuda(x, m)):
+            raise AssertionError(f"{name}: fps.cu and fps_cluster.cu differ")
+        block_ms = time_ms(lambda: fps_cuda(x, m), 3)
+        b_ms, _ = fps_bound(b, n, m)
+        print(f"[kernel] {name}: plan {plan}; fps_cluster {res[1]:.4f} ms, "
+              f"fps.cu {block_ms:.4f} ms, plain {res[2]:.4f} ms, bound "
+              f"{b_ms:.4f} ms")
+        if i == K2_MAIN:
+            results["fps_cluster"] = res
+            bounds["fps_cluster"] = fps_bound(b, n, m)
+    del big, vote_like
 
-    centers = pointops.gather_points(xyz, fps_idx).contiguous()
     results["ball_query"] = kernel_phase(
         f"ball_query SA1 B={B} N={SA1['n']} M={SA1['m']} r={SA1['radius']} "
         f"K={SA1['k']}",
         lambda: ball_query_cuda(xyz, centers, SA1["radius"], SA1["k"]),
         lambda: ball_query_ref(xyz, centers, SA1["radius"], SA1["k"]))
+    bounds["ball_query"] = ball_query_bound(
+        ball_query_cuda(xyz, centers, SA1["radius"], SA1["k"]), N_POINTS)
     seeds = centers[:, :AGG["n"]].contiguous()
     votes = (seeds + 0.05 * torch.randn(
         seeds.shape, generator=torch.Generator(dev).manual_seed(1),
@@ -210,6 +471,14 @@ def main() -> int:
     results["three_nn"] = kernel_phase(
         f"three_nn side grid B={B} M={SIDE_GRID['m']} N={SIDE_GRID['n']}",
         lambda: three_nn_cuda(grid, seeds), lambda: three_nn_ref(grid, seeds))
+    bounds["three_nn"] = three_nn_bound(B, SIDE_GRID["m"], SIDE_GRID["n"])
+    # the one PyTorch call that computes the same function (matmul form
+    # of the distance, so it may order near-ties otherwise); a yardstick
+    # only, the port never calls it
+    library["three_nn"] = time_ms(
+        lambda: torch.topk(torch.cdist(grid, seeds), 3, largest=False), 5)
+    print(f"[kernel] three_nn side grid: torch.topk(torch.cdist) "
+          f"{library['three_nn']:.4f} ms")
     fp_src = centers[:, :FP1["n"]].contiguous()
     kernel_phase(
         f"three_nn FP1 B={B} M={FP1['m']} N={FP1['n']}",
@@ -254,13 +523,13 @@ def main() -> int:
         t0 = time.perf_counter()
         res = detector(cloud)  # ends in a host copy: synchronised
         served.append(((time.perf_counter() - t0) * 1e3, res))
-    launches = _build.launch_counts()
-    # ----- end of the main path
-    print(f"[slice] launches during the main path: {launches}")
-    for name, n in launches.items():
+    launches = {"eval": _build.launch_counts()}
+    # ----- end of the eval path
+    print(f"[slice] launches during the eval path: {launches['eval']}")
+    for name, n in launches["eval"].items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was never launched on the "
-                                 "main path")
+                                 "eval path")
     ms = float(np.median(times))
     print(f"[slice] eval forward B={B} x {N_POINTS} x 4: median {ms:.3f} ms "
           f"per batch over {len(times)} runs ({times}), "
@@ -322,9 +591,27 @@ def main() -> int:
         raise AssertionError(f"only {share:.4f} of proposals agree (need "
                              f">= {MIN_AGREE})")
 
+    # ---- 5. training path ---------------------------------------------
+    del model, cpu_model, detector, points, out, gpu, cpu
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    training_path(dev)
+    launches["train"] = _build.launch_counts()
+    # ----- end of the training path
+    print(f"[train] launches during the training path: {launches['train']}")
+    for name in ("fps_cluster", "ball_query", "three_nn"):
+        if launches["train"][name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the "
+                                 "training path")
+
+    # ---- 6. one training step, card vs CPU ------------------------------
+    gpu_vs_cpu_training_step(dev)
+
     sources = {
         "fps": ("nesie_tpu_torch/csrc/fps.cu",
                 "nesie_tpu/ops/pallas_fps.py:73"),
+        "fps_cluster": ("nesie_tpu_torch/csrc/fps_cluster.cu",
+                        "nesie_tpu/ops/pallas_fps.py:25"),
         "ball_query": ("nesie_tpu_torch/csrc/ball_query.cu",
                        "nesie_tpu/ops/pallas_ball_query.py:39"),
         "three_nn": ("nesie_tpu_torch/csrc/three_nn.cu",
@@ -334,9 +621,14 @@ def main() -> int:
     for name in _build.KERNELS:
         err, k_ms, p_ms = results[name]
         src, replaces = sources[name]
+        by_path = {path: n[name] for path, n in launches.items()}
+        b_ms, b_by = bounds[name]
         kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=launches[name],
-                            max_abs_err=err, ms=k_ms, plain_ms=p_ms))
+                            replaces=replaces,
+                            launches=sum(by_path.values()),
+                            launches_by_path=by_path, max_abs_err=err,
+                            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=library[name]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

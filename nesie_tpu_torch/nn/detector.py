@@ -31,6 +31,8 @@ class VoteNetNesie(nn.Module):
             (64, 64, 128), (128, 128, 256), (128, 128, 256), (128, 128, 256),
         ),
         fp_channels: Sequence[Sequence[int]] = ((256, 256), (256, 256)),
+        jitter_scale: float = 0.3,
+        jitter_size_bias: float = 0.0,
     ):
         super().__init__()
         seed_feat_dim = fp_channels[-1][-1]
@@ -40,12 +42,16 @@ class VoteNetNesie(nn.Module):
             num_classes=num_classes, reg_max=reg_max,
             num_proposal=num_proposal, seed_feat_dim=seed_feat_dim,
             sizes=sizes, vote_conv_channels=(seed_feat_dim, seed_feat_dim),
-            dataset_name=dataset_name)
+            dataset_name=dataset_name, jitter_scale=jitter_scale,
+            jitter_size_bias=jitter_size_bias)
 
     def forward(self, points: torch.Tensor, sample_mod: str = "seed",
-                with_jitter: bool = False) -> dict:
-        """points: (B, N, in_channels)."""
-        return self.bbox_head(self.backbone(points), sample_mod, with_jitter)
+                with_jitter: bool = False, noise=None,
+                generator: torch.Generator | None = None) -> dict:
+        """points: (B, N, in_channels). ``noise`` / ``generator``: the
+        jitter noise, see ``NesieHead.forward``."""
+        return self.bbox_head(self.backbone(points), sample_mod, with_jitter,
+                              noise=noise, generator=generator)
 
 
 @torch.no_grad()

@@ -5,30 +5,66 @@ reference is an ``nn.Linear`` over the last axis here. Submodule names
 follow the reference's state_dict (mmcv ConvModule: ``<name>.conv`` and
 ``<name>.bn``), so a reference checkpoint loads by name.
 
-BatchNorm runs on its running statistics only (eps 1e-5; flax momentum 0.9
-is torch momentum 0.1). Train-mode BN, with flax's biased-variance
-updates, is not ported yet, and a module in training mode raises.
+BatchNorm has flax's semantics (``nn.BatchNorm``, momentum 0.9, eps
+1e-5). In eval mode it normalises with the running statistics. In train
+mode it normalises with the batch statistics of every leading position,
+taking flax's fast variance ``max(E[x^2] - E[x]^2, 0)`` (biased), and
+updates the running statistics with that same biased variance as
+``0.9 * old + 0.1 * batch``; ``torch.nn.BatchNorm1d`` would update with the
+unbiased variance. ``frozen_bn_stats`` gives the teacher's mode: batch
+statistics, running statistics left as they are.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 from typing import Sequence
 
 import torch
 from torch import nn
 
+BN_MOMENTUM = 0.9  # flax: new = momentum * old + (1 - momentum) * batch
+BN_EPS = 1e-5
+
 
 class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the last axis of a channels-last tensor, eval only."""
+    """BatchNorm over the last axis of a channels-last tensor."""
 
     def __init__(self, channels: int):
-        super().__init__(channels, eps=1e-5, momentum=0.1)
+        super().__init__(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported; call .eval()")
-        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+        flat = x.reshape(-1, x.shape[-1])
+        if not self.training:
+            return super().forward(flat).reshape(x.shape)
+        mean = flat.mean(dim=0)
+        var = torch.clamp((flat * flat).mean(dim=0) - mean * mean, min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    (1.0 - BN_MOMENTUM) * var)
+                self.num_batches_tracked.add_(1)
+        y = (flat - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).reshape(x.shape)
+
+
+@contextlib.contextmanager
+def frozen_bn_stats(model: nn.Module):
+    """Within the block, every BatchNorm of ``model`` in train mode
+    normalises with batch statistics and leaves its running statistics
+    alone (the teacher forward of the semi step)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    before = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield model
+    finally:
+        for m, flag in zip(bns, before):
+            m.update_stats = flag
 
 
 class ConvModule(nn.Module):

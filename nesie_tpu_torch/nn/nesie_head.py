@@ -1,10 +1,11 @@
 """NesieHead: per-side distribution box regression + quality estimation.
 
-Counterpart of ``nesie_tpu/nn/nesie_head.py`` for the eval path: vote ->
-aggregate (SA module on ``sample_mod="seed"``) -> shared conv head ->
-integral side decode (``side2box``) -> SidePooling quality module. The
-``vote``, ``random`` and ``spec`` sample modes and the jittered proposal
-copies are not ported yet, and the head raises on them.
+Counterpart of ``nesie_tpu/nn/nesie_head.py``: vote -> aggregate (SA
+module; ``sample_mod="seed"`` samples the FPS-ordered seeds by prefix,
+``"vote"`` runs FPS on the votes) -> shared conv head -> integral side
+decode (``side2box``) -> jittered proposal copies (``with_jitter``) ->
+SidePooling quality module. The ``random`` and ``spec`` sample modes are
+not ported yet, and the head raises on them.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from .pointnet2 import PointSAModule
 from .side_pooling import SidePooling
 from .vote import VoteModule
 
-SUPPORTED_SAMPLE_MODS = ("seed",)
+SUPPORTED_SAMPLE_MODS = ("seed", "vote")
 
 
 def side2box(aggregated_points, side_offsets, heading_pred, sizes):
@@ -45,12 +46,35 @@ def side2box(aggregated_points, side_offsets, heading_pred, sizes):
     return surface_pred, scale, bbox_pred
 
 
+def jitter_noise(shape, generator: torch.Generator,
+                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two standard-normal draws of ``jitter_boxes``, from
+    ``generator`` (on the generator's device, then moved to ``device``)."""
+    n1 = torch.randn(shape, generator=generator, device=generator.device)
+    n2 = torch.randn(shape, generator=generator, device=generator.device)
+    return n1.to(device), n2.to(device)
+
+
+def jitter_boxes(bbox_pred, noise, noise_scale: float = 0.3,
+                 size_bias: float = 0.0):
+    """Jittered copies of the decoded boxes (reference nesie_head.py:178):
+    bbox_pred (B, P, 7), noise two (B, P, 3) standard-normal tensors ->
+    (B, P, 7), heading copied."""
+    n1, n2 = noise
+    center, size = bbox_pred[..., :3], bbox_pred[..., 3:6]
+    center_j = center + size * n1 * noise_scale
+    size_j = torch.clamp(size + size * (n2 * noise_scale + size_bias),
+                         min=1e-8)
+    return torch.cat([center_j, size_j, bbox_pred[..., 6:7]], dim=-1)
+
+
 class NesieHead(nn.Module):
-    """Forward pass of the Nesie detection head at eval. Returns
-    obj_scores (B,P,2), sem_scores (B,P,C), bbox_preds (B,P,7),
-    surface_pred/scale (B,P,6), bbox_probs (B,P,6,n+1), iou_scores (B,P,C)
-    and side_scores (B,P,6,C) (both sigmoided), plus the seed, vote and
-    aggregated tensors."""
+    """Forward pass of the Nesie detection head. Returns obj_scores
+    (B,P,2), sem_scores (B,P,C), bbox_preds (B,P,7), surface_pred/scale
+    (B,P,6), bbox_probs (B,P,6,n+1), iou_scores (B,P,C) and side_scores
+    (B,P,6,C) (both sigmoided), plus the seed, vote and aggregated
+    tensors; with jitter also jitter_bbox_preds (B,P,7),
+    iou_scores_jitter and side_scores_jitter."""
 
     def __init__(
         self,
@@ -65,8 +89,12 @@ class NesieHead(nn.Module):
         agg_mlp_channels: Sequence[int] = (128, 128, 128),
         pred_shared_channels: Sequence[int] = (128, 128),
         dataset_name: str = "ScanNet",
+        jitter_scale: float = 0.3,
+        jitter_size_bias: float = 0.0,
     ):
         super().__init__()
+        self.jitter_scale = jitter_scale
+        self.jitter_size_bias = jitter_size_bias
         self.reg_max = reg_max
         self.num_proposal = num_proposal
         self.sizes = tuple(sizes)
@@ -84,13 +112,18 @@ class NesieHead(nn.Module):
                                      reg_max=reg_max)
 
     def forward(self, feat_dict: dict, sample_mod: str = "seed",
-                with_jitter: bool = False) -> dict:
+                with_jitter: bool = False, noise=None,
+                generator: torch.Generator | None = None) -> dict:
+        """``with_jitter`` adds the jittered proposal copies; their noise
+        is ``noise`` (two (B, P, 3) tensors) or drawn from ``generator``.
+        In train mode the quality module's BN statistics then cover all
+        2P proposals, as in the reference."""
         if sample_mod not in SUPPORTED_SAMPLE_MODS:
             raise NotImplementedError(
                 f"sample_mod={sample_mod!r} is not ported; the port supports "
                 f"{SUPPORTED_SAMPLE_MODS}")
-        if with_jitter:
-            raise NotImplementedError("with_jitter=True is not ported")
+        if with_jitter and noise is None and generator is None:
+            raise ValueError("with_jitter needs noise or a generator")
         seed_points = feat_dict["fp_xyz"][-1]
         seed_features = feat_dict["fp_features"][-1]
         vote_points, vote_features, vote_offset = self.vote_module(
@@ -104,12 +137,15 @@ class NesieHead(nn.Module):
             vote_offset=vote_offset,
         )
 
-        # seeds are the FPS-ordered SA2 points: by FPS prefix consistency
-        # the head's seed FPS is an arange
         B = seed_points.shape[0]
-        sample_indices = torch.arange(
-            self.num_proposal, dtype=torch.int32, device=seed_points.device
-        ).expand(B, -1)
+        if sample_mod == "vote":  # FPS over the votes
+            sample_indices = None
+        else:
+            # seeds are the FPS-ordered SA2 points: by FPS prefix
+            # consistency the head's seed FPS is an arange
+            sample_indices = torch.arange(
+                self.num_proposal, dtype=torch.int32,
+                device=seed_points.device).expand(B, -1)
         aggregated_points, features, aggregated_indices = \
             self.vote_aggregation(vote_points, vote_features,
                                   indices=sample_indices)
@@ -133,8 +169,17 @@ class NesieHead(nn.Module):
         results["bbox_preds"] = bbox_pred
         results["bbox_probs"] = torch.softmax(dist_logits, dim=-1)
 
-        # quality module on the detached boxes
-        both = bbox_pred.detach()
+        # quality module on the detached (and jittered) boxes
+        if with_jitter:
+            if noise is None:
+                noise = jitter_noise(bbox_pred[..., :3].shape, generator,
+                                     bbox_pred.device)
+            jitter = jitter_boxes(bbox_pred, noise, self.jitter_scale,
+                                  self.jitter_size_bias)
+            results["jitter_bbox_preds"] = jitter
+            both = torch.cat([bbox_pred, jitter], dim=1).detach()
+        else:
+            both = bbox_pred.detach()
         if self.dataset_name == "ScanNet":
             heading = torch.zeros_like(both[..., 6])
         else:
@@ -142,6 +187,11 @@ class NesieHead(nn.Module):
         side_scores, iou_scores = self.grid_conv(
             both[..., :3], both[..., 3:6], heading, seed_points.detach(),
             seed_features.detach(), results["bbox_probs"].detach())
-        results["iou_scores"] = torch.sigmoid(iou_scores)
-        results["side_scores"] = torch.sigmoid(side_scores)
+        iou_scores = torch.sigmoid(iou_scores)
+        side_scores = torch.sigmoid(side_scores)
+        results["iou_scores"] = iou_scores[:, :P]
+        results["side_scores"] = side_scores[:, :P]
+        if with_jitter:
+            results["iou_scores_jitter"] = iou_scores[:, P:]
+            results["side_scores_jitter"] = side_scores[:, P:]
         return results

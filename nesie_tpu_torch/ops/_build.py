@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-The sources under ``nesie_tpu_torch/csrc/`` are compiled on first use with
-``nvcc`` into one shared library with a plain C interface, loaded with
-``ctypes``. The library lands in ``build/nesie_tpu_torch/`` at the root of
-the checkout, named by a hash of the sources, so an edit rebuilds it and an
-unchanged tree reuses it. Each C entry point takes device pointers, sizes
+The sources under ``nesie_tpu_torch/csrc/`` are compiled on first use, one
+``nvcc`` process per source, all started together, and linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The
+library lands in ``build/nesie_tpu_torch/`` at the root of the checkout,
+named by a hash of the sources, so an edit rebuilds it and an unchanged
+tree reuses it. Each C entry point takes device pointers, sizes
 and a stream, launches on that stream and returns ``cudaGetLastError()``.
 
 Every wrapper counts its launches in ``_LAUNCHES``: one per kernel launch,
@@ -26,18 +27,20 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nesie_tpu_torch"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (every entry point returns a cudaError_t as int)
     "nesie_fps": [_P, _I, _I, _I, _P, _P, _P],
+    "nesie_fps_cluster": [_P, _I, _I, _I, _I, _P, _P],
+    "nesie_fps_cluster_plan": [_I, _I, _I, _P],
     "nesie_ball_query": [_P, _P, _I, _I, _I, _I, _F, _F, _P, _P],
     "nesie_three_nn": [_P, _P, _I, _I, _I, _P, _P],
 }
 
-KERNELS = ("fps", "ball_query", "three_nn")
+KERNELS = ("fps", "fps_cluster", "ball_query", "three_nn")
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lib = None
@@ -78,25 +81,51 @@ def library_path() -> Path:
     return _BUILD_DIR / f"libnesie_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(procs: list[tuple[list[str], subprocess.Popen]],
+          verbose: bool) -> None:
+    failed = []
+    for cmd, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+        elif verbose and log.strip():
+            print(log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless a library of the same sources exists."""
+    """Compile the kernels unless a library of the same sources exists:
+    one ``nvcc -c`` per source in parallel, then one link."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
+    compiles, objects = [], []
+    for src in sources():
+        obj = out.parent / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        compiles.append((cmd, _run(cmd)))
+        objects.append(obj)
+    _wait(compiles, verbose)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+            *map(str, objects)]
+    _wait([(link, _run(link))], verbose)
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

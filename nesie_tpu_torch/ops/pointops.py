@@ -4,14 +4,23 @@ Counterpart of ``nesie_tpu/ops/pointops.py``. The three searches dispatch
 on the device of their input: a CPU tensor takes the plain PyTorch version,
 a CUDA tensor the hand-written kernel (which raises if it cannot build or
 launch). There is no switch and no fallback between the two.
+
+FPS on a CUDA tensor picks its kernel by the batch alone: B <= 16 rows
+(a ``Detector`` request, the semi step's B=12) go to ``fps_cluster.cu``,
+one thread-block cluster per row; more rows (the B=32 eval forward) go to
+``fps.cu``, one block per row.
 """
 from __future__ import annotations
 
 import torch
 
 from .ball_query import ball_query_cuda, ball_query_ref
-from .fps import fps_cuda, fps_ref
+from .fps import fps_cluster_cuda, fps_cuda, fps_ref
 from .three_nn import three_nn_cuda, three_nn_ref
+
+
+# the most rows that FPS gives a thread-block cluster each
+FPS_CLUSTER_MAX_ROWS = 16
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -31,6 +40,8 @@ def furthest_point_sample(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
     xyz = _coords(xyz)
     if _on_cpu(xyz):
         return fps_ref(xyz, num_samples)
+    if xyz.shape[0] <= FPS_CLUSTER_MAX_ROWS:
+        return fps_cluster_cuda(xyz, num_samples)
     return fps_cuda(xyz, num_samples)
 
 

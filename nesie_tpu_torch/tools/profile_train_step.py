@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Where the time of one semi-supervised train step goes, on one card.
+
+    python3 -m nesie_tpu_torch.tools.profile_train_step [--steps 3]
+
+Needs one CUDA card and nvcc. Builds the flagship VoteNetNesie (seeded
+random weights), the reference semi-step batch of ``chip_smoke.py``
+(4 labeled + 8 unlabeled synthetic rooms x 40000 x 4), runs two warm-up
+steps, then ``--steps`` steps under ``torch.profiler`` (CPU and CUDA
+activities). Prints the wall time per step, the device's busy time (the
+sum of the kernels' device time, one stream) and idle share, and the
+kernels grouped by kind with their device ms per step, largest first,
+then one JSON line of the same numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from nesie_tpu_torch.data.synthetic import semi_batch
+from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_
+from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
+from nesie_tpu_torch.train.state import create_train_state, make_lr_schedule
+
+# kernel-name patterns, first match wins
+GROUPS = (
+    ("fps_cluster (CUDA, ours)", r"fps_cluster_kernel"),
+    ("fps (CUDA, ours)", r"fps_kernel"),
+    ("ball_query (CUDA, ours)", r"ball_query_kernel"),
+    ("three_nn (CUDA, ours)", r"three_nn_kernel"),
+    ("fp32 GEMM (cuBLAS)", r"gemm|sgemm|cutlass|Kernel2|ampere|sm90"),
+    ("reductions (BN stats, sums, max)", r"reduce|Reduce"),
+    ("gather / scatter / index", r"index|gather|scatter|Index"),
+    ("sort / top-k", r"sort|Sort|topk|radix"),
+    ("elementwise", r"elementwise|vectorized|unrolled|Elementwise"),
+    ("copies / cat", r"copy|Copy|cat|Cat|memcpy|memset"),
+)
+
+
+def kernel_times(prof) -> dict:
+    """Device microseconds by kernel name, from the profiler's events."""
+    out: dict = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        out[evt.name] = out.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_train_step: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    model = VoteNetNesie()
+    init_weights_(model, torch.Generator().manual_seed(3))
+    state = create_train_state(model, make_lr_schedule(8e-3, 1000), device=dev)
+    n_lab, n_unl, scans = 4, 8, 64
+    batch = semi_batch(np.random.default_rng(7), n_lab, n_unl, 40000, 64, 8,
+                       dev)
+    ulb = [UlbState.create(scans, 18, device=dev)]
+    step = make_semi_train_step(n_lab, scans)
+    gen = torch.Generator(dev).manual_seed(2)
+
+    def run():
+        ulb[0], _ = step(state, ulb[0], batch, generator=gen)
+
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / args.steps
+    per_kernel = {k: v / 1e3 / args.steps for k, v in kernel_times(prof).items()}
+    busy = sum(per_kernel.values())
+    groups: dict = {}
+    for name, ms in per_kernel.items():
+        label = next((g for g, pat in GROUPS if re.search(pat, name)),
+                     "other")
+        groups[label] = groups.get(label, 0.0) + ms
+    print(f"semi step {n_lab}+{n_unl} x 40000 x 4 under the profiler: wall "
+          f"{wall:.3f} ms per step, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}")
+    for label, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:10.3f} ms  {ms / busy:6.1%}  {label}")
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    print("largest kernels:")
+    for name, ms in top:
+        print(f"  {ms:10.3f} ms  {name[:110]}")
+    print(json.dumps(dict(wall_ms=wall, busy_ms=busy,
+                          idle_share=1 - busy / wall, groups=groups,
+                          device=torch.cuda.get_device_name(0))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

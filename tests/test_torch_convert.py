@@ -96,6 +96,18 @@ def test_port_to_flax_to_port_is_exact():
         assert torch.equal(back[k], v), k
 
 
+def test_params_only_tree_maps_onto_parameter_names():
+    """A params-shaped tree (gradients, the EMA teacher) maps onto exactly
+    the port's parameter names, the BN running statistics left out."""
+    params, stats = _random_flax_variables(seed=2)
+    model = VoteNetNesie(**TINY)
+    sd = state_dict_from_flax(params)
+    assert set(sd) == {n for n, _ in model.named_parameters()}
+    full = state_dict_from_flax(params, stats)
+    for k, v in sd.items():
+        assert torch.equal(v, full[k]), k
+
+
 def test_reference_pth_loads_into_port(tmp_path):
     """A reference-layout checkpoint (Conv1d/Conv2d weights with unit
     dims, teacher ema_* buffers) loads with strict=True, and the port's

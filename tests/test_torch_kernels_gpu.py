@@ -12,7 +12,12 @@ import torch
 
 from nesie_tpu_torch.ops import _build
 from nesie_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_ref
-from nesie_tpu_torch.ops.fps import fps_cuda, fps_ref
+from nesie_tpu_torch.ops.fps import (
+    fps_cluster_cuda,
+    fps_cluster_plan,
+    fps_cuda,
+    fps_ref,
+)
 from nesie_tpu_torch.ops.three_nn import three_nn_cuda, three_nn_ref
 
 torch.set_num_threads(1)
@@ -52,6 +57,69 @@ def test_fps_kernel_lattice_ties(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,n,m", [
+    (1, 40000, 2048),    # a Detector request
+    (12, 40000, 2048),   # semi-step SA1
+    (12, 1024, 256),     # vote-mode aggregation FPS
+    (2, 200000, 2048),   # the single-row regime of the TPU kernel
+])
+def test_fps_cluster_kernel_matches_plain(cuda, b, n, m):
+    xyz = _uniform((b, n, 3), seed=n + b, scale=5.0).to(cuda)
+    before = _build.launch_counts()["fps_cluster"]
+    got = fps_cluster_cuda(xyz, m)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fps_cluster"] == before + 1
+    assert torch.equal(got, fps_ref(xyz, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_fps_cluster_sizes_and_ragged_slices(cuda, cluster):
+    """N = 5003 is a multiple of no cluster size and of no block size, and
+    at 16 the last slices are short."""
+    xyz = _uniform((3, 5003, 3), seed=cluster).to(cuda)
+    plan = fps_cluster_plan(3, 5003, cluster)
+    assert plan["cluster"] == cluster
+    got = fps_cluster_cuda(xyz, 700, cluster_size=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_ref(xyz, 700))
+
+
+@pytest.mark.gpu
+def test_fps_cluster_coordinates_from_l2(cuda):
+    """Slices too large for their coordinates in shared memory keep only
+    the distances there."""
+    xyz = _uniform((1, 200000, 3), seed=11).to(cuda)
+    assert not fps_cluster_plan(1, 200000, 8)["coords_in_smem"]
+    got = fps_cluster_cuda(xyz, 300, cluster_size=8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_ref(xyz, 300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [0, 4])
+def test_fps_cluster_lattice_ties(cuda, cluster):
+    g = torch.arange(20.0)
+    xyz = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
+    xyz = xyz.reshape(1, -1, 3).contiguous().to(cuda)  # 8000 points
+    got = fps_cluster_cuda(xyz, 500, cluster_size=cluster)
+    assert torch.equal(got, fps_ref(xyz, 500))
+
+
+@pytest.mark.gpu
+def test_fps_dispatch_by_batch(cuda):
+    from nesie_tpu_torch.ops import furthest_point_sample
+
+    xyz = _uniform((17, 3000, 3), seed=12).to(cuda)
+    counts = _build.launch_counts()
+    furthest_point_sample(xyz[:16], 64)
+    furthest_point_sample(xyz, 64)
+    after = _build.launch_counts()
+    assert after["fps_cluster"] == counts["fps_cluster"] + 1
+    assert after["fps"] == counts["fps"] + 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["random", "dup_centers", "no_neighbour",
                                   "min_radius"])
 def test_ball_query_kernel_matches_plain(cuda, case):
@@ -84,12 +152,14 @@ def test_three_nn_kernel_matches_plain(cuda, case):
     assert torch.equal(got, three_nn_ref(q, s))
 
 
-@pytest.mark.parametrize("kernel", ["fps", "ball_query", "three_nn"])
+@pytest.mark.parametrize("kernel", ["fps", "fps_cluster", "ball_query",
+                                    "three_nn"])
 def test_wrappers_refuse_cpu_tensors(kernel):
     """A kernel wrapper never runs the plain version in its place."""
     x = _uniform((1, 64, 3), seed=5)
     call = {
         "fps": lambda: fps_cuda(x, 8),
+        "fps_cluster": lambda: fps_cluster_cuda(x, 8),
         "ball_query": lambda: ball_query_cuda(x, x, 0.2, 4),
         "three_nn": lambda: three_nn_cuda(x, x),
     }[kernel]

@@ -251,19 +251,36 @@ def test_nesie_head(weights, pallas_interpret):
 
 
 def test_nesie_head_refuses_unported_modes(weights):
+    """``random`` and ``spec`` are not ported; jittered proposals need
+    their noise or a generator."""
     model, _, _ = weights
-    with pytest.raises(NotImplementedError):
-        model.bbox_head({}, "vote")
-    with pytest.raises(NotImplementedError):
+    for mode in ("random", "spec"):
+        with pytest.raises(NotImplementedError):
+            model.bbox_head({}, mode)
+    with pytest.raises(ValueError, match="noise or a generator"):
         model.bbox_head({}, "seed", with_jitter=True)
 
 
 def test_train_mode_bn_refuses(weights):
+    """Train-mode BN runs on batch statistics and updates the running
+    statistics flax's way; under ``frozen_bn_stats`` it refuses the
+    update. (Parity with flax: tests/test_torch_train_modules.py.)"""
+    from nesie_tpu_torch.nn.layers import frozen_bn_stats
+
     model, _, _ = weights
     mlp = model.backbone.SA_modules[0].mlps[0]
+    bn = mlp.layer0.bn
+    saved = {k: v.clone() for k, v in mlp.state_dict().items()}
+    before = saved["layer0.bn.running_mean"]
     mlp.train()
     try:
-        with pytest.raises(NotImplementedError):
+        with torch.no_grad(), frozen_bn_stats(mlp):
             mlp(torch.zeros(1, 2, 3, 4))
+        assert torch.equal(bn.running_mean, before)
+        with torch.no_grad():
+            out = mlp(torch.zeros(1, 2, 3, 4))
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(bn.running_mean, 0.9 * before)
     finally:
         mlp.eval()
+        mlp.load_state_dict(saved)

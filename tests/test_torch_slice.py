@@ -161,7 +161,11 @@ def test_detector_request_matches_jax(slice_setup):
 
 def test_port_never_imports_jax():
     """Neither jax nor the JAX package is loaded by the port."""
-    code = ("import sys, nesie_tpu_torch.apis, nesie_tpu_torch.ops; "
+    code = ("import sys, nesie_tpu_torch.apis, nesie_tpu_torch.ops, "
+            "nesie_tpu_torch.train.semi, nesie_tpu_torch.train.step, "
+            "nesie_tpu_torch.data.synthetic, "
+            "nesie_tpu_torch.tools.fps_cluster_sweep, "
+            "nesie_tpu_torch.tools.profile_train_step; "
             "bad = sorted(m for m in sys.modules "
             "if m in ('jax', 'flax', 'nesie_tpu') "
             "or m.startswith(('jax.', 'flax.', 'nesie_tpu.'))); "
