@@ -27,10 +27,11 @@ file; fails without them. In order:
    per labeled scene) after one warm-up, then five supervised steps at
    B=8 after one warm-up, with the losses, gradients, the parameter and
    BN-statistic updates and the EMA teacher checked;
-6. one semi step of a narrow model (1 + 2 scenes of 4096 points) on the
-   card and on the CPU from the same weights and inputs: identical FPS
-   and ball-query indices, loss terms within atol 1e-4 + rtol 1e-3,
-   gradient cosine above 0.999.
+6. one semi step of a narrow model (1 + 2 scenes of 4096 points, relaxed
+   pseudo-label thresholds) on the card and on the CPU from the same
+   weights and inputs: pseudo-boxes and a nonzero unsupervised IoU loss
+   on both, identical FPS and ball-query indices, loss terms within
+   atol 1e-4 + rtol 1e-3, gradient cosine above 0.999.
 
 Prints ``{"kernels": [...]}``, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -82,6 +83,12 @@ TINY = dict(
 )
 TINY_POINTS = 4096
 TRAIN_ATOL, TRAIN_RTOL, MIN_COSINE = 1e-4, 1e-3, 0.999
+# pseudo-label thresholds relaxed (as in tests/test_torch_train_semi.py)
+# so that the narrow teacher's random weights yield pseudo-boxes and the
+# quality-weighted unsupervised losses are compared where they are not 0
+RELAXED_PL = dict(obj_thr=0.3, cls_thr_base=0.0, cls_thr_scale=0.0,
+                  cls_thr_cap=0.0, iou_thr_base=0.3, iou_thr_scale=0.0,
+                  iou_thr_cap=0.3)
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense fp32, HBM3)
 FP32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -287,6 +294,7 @@ def gpu_vs_cpu_training_step(dev) -> None:
     import nesie_tpu_torch.nn.pointnet2 as pn2
     from nesie_tpu_torch.data.synthetic import semi_batch
     from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_, randomize_bn_
+    from nesie_tpu_torch.train.pseudo_label import PseudoLabelConfig
     from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
     from nesie_tpu_torch.train.state import (
         create_train_state,
@@ -325,7 +333,8 @@ def gpu_vs_cpu_training_step(dev) -> None:
 
         pn2.furthest_point_sample, pn2.ball_query = rec_fps, rec_bq
         try:
-            _, metrics = make_semi_train_step(1, SEMI["scans"])(
+            _, metrics = make_semi_train_step(
+                1, SEMI["scans"], pl_cfg=PseudoLabelConfig(**RELAXED_PL))(
                 state, ulb, batch, noise=tuple(n.to(device) for n in noise))
         finally:
             pn2.furthest_point_sample, pn2.ball_query = fps, bq
@@ -333,6 +342,12 @@ def gpu_vs_cpu_training_step(dev) -> None:
                           for p in state.model.parameters()])
         runs[where] = (indices, {k: v.item() for k, v in metrics.items()},
                        grad)
+        if not (metrics["num_pseudo"] > 0 and metrics["unsup_iou_loss"] != 0):
+            raise AssertionError(
+                f"narrow semi step on {where}: no pseudo-boxes reached the "
+                f"unsupervised losses (num_pseudo "
+                f"{metrics['num_pseudo'].item()}, unsup_iou_loss "
+                f"{metrics['unsup_iou_loss'].item()})")
     (gi, gm, gg), (ci, cm, cg) = runs["cuda"], runs["cpu"]
     if len(gi) != len(ci) or any(
             a[0] != b[0] or not torch.equal(a[1], b[1]) for a, b in zip(gi, ci)):
@@ -349,7 +364,10 @@ def gpu_vs_cpu_training_step(dev) -> None:
         raise AssertionError(f"gradient cosine card vs CPU {cos} <= "
                              f"{MIN_COSINE}")
     print(f"[train] card vs CPU, one semi step of the narrow model (1+2 "
-          f"scenes x {TINY_POINTS}): {len(gi)} FPS / ball-query index "
+          f"scenes x {TINY_POINTS}, relaxed pseudo-label thresholds: "
+          f"num_pseudo {gm['num_pseudo']:g} / {cm['num_pseudo']:g}, "
+          f"unsup_iou_loss {gm['unsup_iou_loss']:.6f} / "
+          f"{cm['unsup_iou_loss']:.6f}): {len(gi)} FPS / ball-query index "
           f"tensors identical; loss terms within atol {TRAIN_ATOL} + rtol "
           f"{TRAIN_RTOL} (max |diff| {worst:.3e}); gradient cosine "
           f"{cos:.8f}")

@@ -26,7 +26,7 @@ from nesie_tpu_torch.ops.fps import (
 )
 
 SHAPES = ((1, 40000, 2048), (12, 40000, 2048), (12, 1024, 256),
-          (2, 200000, 2048), (16, 40000, 2048))
+          (2, 200000, 2048), (16, 40000, 2048), (32, 40000, 2048))
 SIZES = (0, 1, 2, 4, 8, 16)
 
 

@@ -121,12 +121,12 @@ def make_semi_train_step(
     un_label_weight: float = 2.0,
     pos_distance_thr: float = 0.3,
     neg_distance_thr: float = 0.6,
-    teacher_jitter: bool = False,
     ema_bn_stats: bool = False,
 ):
-    """Build ``step(state, ulb_state, batch, noise=None, generator=None,
-    teacher_noise=None) -> (ulb_state, metrics)``; ``state`` is updated in
-    place.
+    """Build ``step(state, ulb_state, batch, noise=None, generator=None)
+    -> (ulb_state, metrics)``; ``state`` is updated in place. The teacher
+    runs without jittered proposals (the JAX package's default,
+    ``teacher_jitter=False``).
 
     batch (B = n_labeled + n_unlabeled, labeled first):
         points_raw_s, points_raw_t (B, N, C): the un-augmented strong and
@@ -135,12 +135,11 @@ def make_semi_train_step(
             the labeled prefix (the rest is ignored);
         aug_s, aug_t: AugParams with leading dim B;
         ulb_scan_idx (B,) int64: UlbState rows of the unlabeled slots.
-    noise / generator: the student's jitter noise (NesieHead.forward);
-    teacher_noise: the teacher's, with ``teacher_jitter``.
+    noise / generator: the student's jitter noise (NesieHead.forward).
     """
 
     def step(state: TrainState, ulb_state: UlbState, batch: dict, noise=None,
-             generator: torch.Generator | None = None, teacher_noise=None):
+             generator: torch.Generator | None = None):
         B = batch["points_raw_s"].shape[0]
         points_s = augment_points(batch["points_raw_s"], batch["aug_s"],
                                   shift_height=True)
@@ -151,9 +150,7 @@ def make_semi_train_step(
         # teacher on the weak view: batch statistics, no stat update
         teacher = state.teacher.train()
         with torch.no_grad(), frozen_bn_stats(teacher):
-            teacher_out = teacher(points_t, sample_mod,
-                                  with_jitter=teacher_jitter,
-                                  noise=teacher_noise, generator=generator)
+            teacher_out = teacher(points_t, sample_mod, with_jitter=False)
         teacher.eval()
 
         acc = classwise_acc(ulb_state.ulb_list, ulb_state.ulb_flag,

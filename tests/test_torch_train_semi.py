@@ -3,18 +3,32 @@ end to end on the CPU, from the same weights and the same batch.
 
 Tiny VoteNetNesie (18 classes, 128 proposals), 1 labeled + 2 unlabeled
 scenes of 1024 points, one unlabeled scan drawn twice. Both sides run in
-float64, the JAX side with the numpy neighbour searches of
-``test_torch_train_support`` (see there why). The student's jitter noise
-is the noise JAX draws from the same key (``semi.py:182`` splits the step
-key, ``nesie_head.py:207`` the student's); the augmentation parameters
-are numpy draws handed to both sides. The pseudo-label thresholds are
+float64, the JAX side with the jnp neighbour searches of
+``test_torch_train_support`` (see there why). The JAX step is jitted with
+XLA's CPU ``fusion`` pass turned off: with the default pipeline its
+gradients of the backbone's parameters are wrong at this batch. The
+vote aggregation's dense + train-mode BN + ReLU stack followed by the
+max-pool over duplicate-filled ball-query slots is where they part (the
+module alone, jitted, differs from its unjitted self at B=3 and not at
+B=2, nor with mean pooling, nor with fusion off). A finite difference
+settles which is right: ``test_gradients_match_finite_difference`` holds
+the port and this JAX step to the difference quotient of the loss with
+its stop-gradient values frozen; ``python tests/test_torch_train_semi.py``
+prints that quotient beside the slopes of the port, the JAX step jitted
+with and without fusion, and the unjitted JAX step.
+
+The student's jitter noise is the noise JAX draws from the same key
+(``semi.py:182`` splits the step key, ``nesie_head.py:207`` the
+student's); the augmentation parameters are numpy draws handed to both
+sides. The pseudo-label thresholds are
 relaxed so that both teachers accept boxes. The pseudo-labels and both
 forwards' aggregation indices are read inside each side's step.
 
 Tolerances: loss terms atol 1e-4, rtol 1e-4; gradients, AdamW-updated
 parameters, BN running statistics and the EMA teacher atol 1e-4,
 rtol 1e-3; FPS indices, pseudo-label classes and validity, and
-``UlbState`` exactly. (In float64 the two sides agree to about 1e-10.)
+``UlbState`` exactly; both sides' directional derivatives against the
+central difference (h = 1e-7) rtol 1e-4.
 """
 import jax
 import jax.numpy as jnp
@@ -33,6 +47,7 @@ from nesie_tpu_torch.convert import state_dict_from_flax
 from nesie_tpu_torch.data.augment import AugParams
 from nesie_tpu_torch.train import semi as tsemi
 from nesie_tpu_torch.train import state as tstate
+from nesie_tpu_torch.train import sup_loss as tsup_loss
 from nesie_tpu_torch.train.pseudo_label import PseudoLabelConfig
 from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
 from nesie_tpu_torch.train.state import create_train_state, make_lr_schedule
@@ -53,6 +68,13 @@ SEED = 0
 PL = dict(num_classes=18, obj_thr=0.3, cls_thr_base=0.0, cls_thr_scale=0.0,
           cls_thr_cap=0.0, iou_thr_base=0.3, iou_thr_scale=0.0,
           iou_thr_cap=0.3)
+# the finite-difference witness: a seeded direction in the first SA
+# module's parameters, the step h
+FD_PREFIX, FD_H = "backbone.SA_modules.0.", 1e-7
+# XLA's CPU fusion pass off for the JAX step: with it, the jitted step's
+# backward through the vote aggregation's max-pool loses gradient at this
+# batch (see the module docstring)
+JAX_COMPILE = {"xla_disable_hlo_passes": "fusion"}
 
 
 def _batch():
@@ -73,7 +95,9 @@ def _initial_ulb():
     return ulb_list, ulb_flag
 
 
-def _jax_step(params, stats, data, key):
+def _jax_step(params, stats, data, key, form="jit, no fusion"):
+    """The JAX package's semi step, jitted with ``JAX_COMPILE`` (or, for
+    the report below, "jit" with XLA's defaults or "eager")."""
     seen = {}
 
     def stash(name):
@@ -114,7 +138,12 @@ def _jax_step(params, stats, data, key):
             jmodel, tx, n_labeled=N_LABELED,
             num_labeled_scans=NUM_LABELED_SCANS,
             pl_cfg=jpl.PseudoLabelConfig(**PL))
-        new, new_ulb, metrics = step.__wrapped__(state, ulb0, jbatch, key)
+        if form == "eager":
+            step = step.__wrapped__
+        elif form != "jit":
+            step = step.lower(state, ulb0, jbatch, key).compile(
+                compiler_options=JAX_COMPILE)
+        new, new_ulb, metrics = step(state, ulb0, jbatch, key)
         jax.block_until_ready(metrics)
         _, rng_s = jax.random.split(key)
         noise = S.jitter_noise(rng_s, (B, S.TINY["num_proposal"], 3))
@@ -174,12 +203,77 @@ def _torch_step(model, data, noise):
                 teacher=dict(state.teacher.named_parameters()), state=state)
 
 
+def _frozen_finite_difference(data, noise):
+    """The port's semi loss at the initial weights, the student moved by
+    +-h along a seeded unit direction in ``FD_PREFIX``'s parameters, with
+    every stop-gradient value (``Tensor.detach`` and the no-grad IoU
+    labels of the supervised loss) frozen at the unmoved pass's: the
+    function whose gradient a backward pass computes. Returns (direction,
+    central difference quotient)."""
+    state = create_train_state(S.weights(0)[2], make_lr_schedule(LR, 10),
+                               device="cpu")
+    params = {n: p for n, p in state.model.named_parameters()
+              if n.startswith(FD_PREFIX)}
+    rng = np.random.default_rng(7)
+    v = {n: torch.from_numpy(rng.normal(size=tuple(p.shape)))
+         for n, p in params.items()}
+    norm = torch.sqrt(sum((d * d).sum() for d in v.values()))
+    v = {n: d / norm for n, d in v.items()}
+    batch = {k: torch.from_numpy(x) for k, x in data.items()
+             if not isinstance(x, dict)}
+    for k in ("aug_s", "aug_t"):
+        batch[k] = AugParams(*(torch.from_numpy(np.asarray(data[k][f]))
+                               for f in S.AUG_FIELDS))
+    step = make_semi_train_step(N_LABELED, NUM_LABELED_SCANS,
+                                pl_cfg=PseudoLabelConfig(**PL))
+    detach, iou3d = torch.Tensor.detach, tsup_loss.iou3d
+    recorded, record = {detach: [], iou3d: []}, [True]
+
+    def frozen(fn):
+        def replay(*args, **kw):
+            out = fn(*args, **kw)
+            if record[0]:
+                recorded[fn].append(out)
+                return out
+            want = recorded[fn][replay.i]
+            replay.i += 1
+            assert want.shape == out.shape
+            return want
+        replay.i = 0
+        return replay
+
+    def loss(shift):
+        totals = []
+        with torch.no_grad():
+            for n, p in params.items():
+                p.add_(shift * FD_H * v[n])
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.Tensor, "detach", frozen(detach))
+            mp.setattr(tsup_loss, "iou3d", frozen(iou3d))
+            mp.setattr(tsemi, "apply_gradients",
+                       lambda state, total: totals.append(total.item()))
+            mp.setattr(tsemi, "ema_update", lambda *a: None)
+            step(state, UlbState(*(torch.from_numpy(x)
+                                   for x in _initial_ulb())), batch,
+                 noise=noise)
+        with torch.no_grad():
+            for n, p in params.items():
+                p.sub_(shift * FD_H * v[n])
+        return totals[0]
+
+    loss(0.0)  # records
+    record[0] = False
+    return v, (loss(1.0) - loss(-1.0)) / (2 * FD_H)
+
+
 @pytest.fixture(scope="module")
 def run():
     params, stats, model = S.weights(0)
     data = _batch()
     noise, jax_side = _jax_step(params, stats, data, jax.random.PRNGKey(3))
-    return jax_side, _torch_step(model, data, noise)
+    torch_side = _torch_step(model, data, noise)
+    torch_side["fd"] = _frozen_finite_difference(data, noise)
+    return jax_side, torch_side
 
 
 def test_fps_indices_agree(run):
@@ -244,3 +338,90 @@ def test_ema_teacher_matches(run):
     for (k, e), p in zip(t["state"].teacher.named_buffers(),
                          t["state"].model.buffers()):
         assert torch.equal(e, p), k
+
+
+def _slope(grads, direction):
+    return sum(float((torch.as_tensor(np.asarray(grads[n]),
+                                      dtype=torch.float64) * d).sum())
+               for n, d in direction.items())
+
+
+def test_gradients_match_finite_difference(run):
+    """The port's and the JAX step's gradients, projected on the seeded
+    direction, against the difference quotient of the loss with its
+    stop-gradient values frozen."""
+    j, t = run
+    v, quotient = t["fd"]
+    assert abs(quotient) > 1e-3  # the direction moves the loss
+    slopes = {"jax": _slope(j["grads"], v), "port": _slope(t["grads"], v)}
+    for side, slope in slopes.items():
+        np.testing.assert_allclose(
+            slope, quotient, rtol=1e-4,
+            err_msg=f"{side}: slopes {slopes}, quotient {quotient}")
+
+
+def _report():
+    """Print the difference quotient beside the slopes of the port and of
+    the JAX step in three forms, then the vote aggregation module alone,
+    jitted against unjitted."""
+    import nesie_tpu.nn.pointnet2 as jpointnet2
+    from nesie_tpu.data.augment import augment_points as jaugment_points
+
+    params, stats, model = S.weights(0)
+    data = _batch()
+    key = jax.random.PRNGKey(3)
+    noise, _ = _jax_step(params, stats, data, key, form="jit")
+    v, quotient = _frozen_finite_difference(data, noise)
+    print(f"difference quotient (port, h={FD_H}): {quotient!r}")
+    port = _torch_step(S.weights(0)[2], data, noise)
+    print(f"slope of the port's gradient: {_slope(port['grads'], v)!r}")
+    for form in ("jit", "jit, no fusion", "eager"):
+        grads = _jax_step(params, stats, data, key, form)[1]["grads"]
+        print(f"slope of the JAX step's gradient ({form}): "
+              f"{_slope(grads, v)!r}")
+
+    with S.jax_float64():
+        jparams = jax.tree.map(jnp.asarray, params)
+        aug = JAug(*(jnp.asarray(data["aug_s"][f]) for f in S.AUG_FIELDS))
+        points = jaugment_points(jnp.asarray(data["points_raw_s"]), aug,
+                                 shift_height=True)
+        out, _ = JVoteNetNesie(**S.TINY).apply(
+            {"params": jparams, "batch_stats": stats}, points, "vote", key,
+            train=True, mutable=["batch_stats"])
+        agg_params = jparams["bbox_head"]["vote_aggregation"]
+        agg_stats = stats["bbox_head"]["vote_aggregation"]
+        widths = tuple(agg_params["mlp"][f"dense{i}"]["kernel"].shape[-1]
+                       for i in range(3))
+        for pool in ("max", "avg"):
+            module = jpointnet2.PointSAModule(
+                num_point=S.TINY["num_proposal"], radius=0.3, num_sample=16,
+                mlp_channels=widths, pool=pool)
+            for b in (2, 3):
+                cot = jnp.asarray(np.random.default_rng(1).normal(
+                    size=(b, S.TINY["num_proposal"], widths[-1])))
+
+                def f(p, feats, module=module, b=b, cot=cot):
+                    (_, o, _), _ = module.apply(
+                        {"params": p, "batch_stats": agg_stats},
+                        out["vote_points"][:b], feats, train=True,
+                        mutable=["batch_stats"])
+                    return jnp.sum(o * cot)
+
+                args = (agg_params, out["vote_features"][:b])
+                grad = jax.grad(f, argnums=(0, 1))
+                eager = jax.tree.leaves(grad(*args))
+                scale = max(float(np.abs(np.asarray(x)).max()) for x in eager)
+                for opts in ({}, JAX_COMPILE):
+                    jitted = jax.tree.leaves(jax.jit(grad).lower(*args).compile(
+                        compiler_options=opts)(*args))
+                    diff = max(float(np.abs(np.asarray(x - y)).max())
+                               for x, y in zip(eager, jitted))
+                    print(f"vote aggregation alone, {pool}-pool, B={b}, "
+                          f"compiler options {opts}: max |jit - eager| "
+                          f"{diff!r} (largest gradient {scale!r})")
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    torch.set_num_threads(4)
+    _report()

@@ -6,14 +6,18 @@ Tiny VoteNetNesie (18 classes, 128 proposals), 2 scenes of 1024 points
 with 5 GT boxes each, augmentation parameters drawn with numpy and handed
 to both sides, jitter noise drawn by JAX from the step's key. Both sides
 run in float64, the JAX side with the jnp neighbour searches of
-``test_torch_train_support`` (see there why), and the JAX step runs
-unjitted: jitted on the CPU its gradients differ from its own eager ones
-(loss values equal), while the eager ones agree with the port to about
-1e-10.
+``test_torch_train_support`` (see there why); the JAX step is jitted, as
+the JAX package trains. A second witness holds the gradients to a finite
+difference of the port's loss along a seeded direction in the
+SidePooling MLPs' parameters (no target of the loss depends on them, so
+the difference quotient is the gradient the losses define; its error is
+the ReLU and max-pool kinks the step crosses, 2e-5 relative at h=1e-7).
 
 Tolerances: loss terms atol 1e-4, rtol 1e-4; gradients, AdamW-updated
 parameters, BN running statistics, the EMA teacher and the eval forwards
-atol 1e-4, rtol 1e-3; aggregation (vote-mode FPS) indices exactly.
+atol 1e-4, rtol 1e-3; aggregation (vote-mode FPS) indices exactly; the
+directional derivatives against the central difference (h = 1e-7)
+rtol 1e-4.
 """
 import jax
 import jax.numpy as jnp
@@ -28,10 +32,12 @@ from nesie_tpu.nn.detector import VoteNetNesie as JVoteNetNesie
 from nesie_tpu.train import state as jstate
 from nesie_tpu.train import step as jstep
 from nesie_tpu_torch.convert import state_dict_from_flax
-from nesie_tpu_torch.data.augment import AugParams
+from nesie_tpu_torch.data.augment import AugParams, augment_boxes, augment_points
 from nesie_tpu_torch.train import state as tstate
 from nesie_tpu_torch.train import step as tstep
 from nesie_tpu_torch.train.state import create_train_state, make_lr_schedule
+from nesie_tpu_torch.train.sup_loss import nesie_supervised_loss
+from nesie_tpu_torch.train.targets import get_targets
 
 torch.set_num_threads(1)
 
@@ -42,6 +48,7 @@ B, LR = 2, 1e-3
 SEED = 1
 EVAL_KEYS = ("bbox_preds", "obj_scores", "sem_scores", "iou_scores",
              "side_scores")
+FD_PREFIX, FD_H = "bbox_head.grid_conv.", 1e-7
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +77,7 @@ def run():
                      gt_labels=jnp.asarray(labels),
                      gt_valid=jnp.asarray(valid),
                      aug=JAug(*(jnp.asarray(aug[f]) for f in S.AUG_FIELDS)))
-        new, metrics = step.__wrapped__(state, batch, key)
+        new, metrics = step(state, batch, key)
         evals = {}
         for teacher in (False, True):
             fwd = jstep.make_eval_forward(jmodel, "seed", use_teacher=teacher)
@@ -116,8 +123,40 @@ def run():
         agg=tseen["agg"], evals=evals,
         metrics={k: float(v) for k, v in metrics.items()}, grads=grads,
         params=state.model.state_dict(),
-        teacher=dict(state.teacher.named_parameters()), state=state)
+        teacher=dict(state.teacher.named_parameters()), state=state,
+        fd=_finite_difference(batch, noise))
     return jax_side, torch_side
+
+
+def _finite_difference(batch, noise):
+    """The port's loss at the step's initial weights, moved by +-h along a
+    seeded unit direction in the SidePooling parameters: (direction,
+    central difference quotient)."""
+    model = S.weights(1)[2].train()
+    points = augment_points(batch["points"], batch["aug"], shift_height=True)
+    gt_boxes = augment_boxes(batch["gt_boxes"], batch["aug"])
+    params = {n: p for n, p in model.named_parameters()
+              if n.startswith(FD_PREFIX)}
+    rng = np.random.default_rng(7)
+    v = {n: torch.from_numpy(rng.normal(size=tuple(p.shape)))
+         for n, p in params.items()}
+    norm = torch.sqrt(sum((d * d).sum() for d in v.values()))
+    v = {n: d / norm for n, d in v.items()}
+
+    def loss(sign):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.add_(sign * FD_H * v[n])
+            out = model(points, "vote", with_jitter=True, noise=noise)
+            targets = get_targets(
+                points[..., :3], gt_boxes, batch["gt_labels"],
+                batch["gt_valid"], out["aggregated_points"])
+            total = nesie_supervised_loss(out, targets)[0].item()
+            for n, p in params.items():
+                p.sub_(sign * FD_H * v[n])
+        return total
+
+    return v, (loss(1.0) - loss(-1.0)) / (2 * FD_H)
 
 
 def test_aggregation_points_agree(run):
@@ -160,3 +199,16 @@ def test_eval_forward_matches(run, teacher):
     for k in EVAL_KEYS:
         np.testing.assert_allclose(t["evals"][teacher][k],
                                    j["evals"][teacher][k], err_msg=k, **TOL)
+
+
+def test_gradients_match_finite_difference(run):
+    """The port's and the jitted JAX step's gradients, projected on the
+    seeded direction, against the difference quotient of the loss."""
+    j, t = run
+    v, quotient = t["fd"]
+    assert abs(quotient) > 1e-6  # the direction moves the loss
+    for side in (t, j):
+        slope = sum(float((torch.as_tensor(np.asarray(side["grads"][n]),
+                                           dtype=torch.float64) * d).sum())
+                    for n, d in v.items())
+        np.testing.assert_allclose(slope, quotient, rtol=1e-4)
