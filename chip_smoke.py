@@ -15,6 +15,14 @@ file; fails without them. In order:
    FPS has two kernels: ``fps.cu`` (one block per row, B > 16) and
    ``fps_cluster.cu`` (one thread-block cluster per row, B <= 16), both
    timed at each of the cluster kernel's shapes;
+   [fps-lab], counts set to 0 before and read after (path ``lab``): the
+   FPS lab's two entry points run all eight step variants of
+   ``csrc/fps_variants.cu`` (the TPU lab's K5 and K6) on the tie-heavy
+   and random check clouds (B=3, N=600, M=37; odd B for the two-row
+   ``v3``), at K5's bench shape (8 x 40000 -> 2048, uniform) and at K6's
+   default (32 x 40000 -> 2048, normal x 3), each beside ``fps.cu`` and
+   ``fps_cluster.cu``; every variant must give ``fps_ref``'s indices.
+   Then each variant against its plain version, with both times;
 4. eval path: the flagship VoteNetNesie (seeded random weights, BN
    running stats randomised) runs the batched eval forward at
    B=32 x 40000 x 4 and serves three ``Detector`` requests (B=1), with
@@ -89,6 +97,9 @@ TRAIN_ATOL, TRAIN_RTOL, MIN_COSINE = 1e-4, 1e-3, 0.999
 RELAXED_PL = dict(obj_thr=0.3, cls_thr_base=0.0, cls_thr_scale=0.0,
                   cls_thr_cap=0.0, iou_thr_base=0.3, iou_thr_scale=0.0,
                   iou_thr_cap=0.3)
+# the kernels the eval path must launch (fps_variant is the lab's alone)
+EVAL_KERNELS = ("fps", "fps_cluster", "ball_query", "three_nn")
+LAB_REPS = 5
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense fp32, HBM3)
 FP32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -174,6 +185,84 @@ def three_nn_bound(b: int, m: int, n: int):
     """Three-NN: 8 operations per (query, source) pair for the distance
     and one compare; reads both point sets, writes 3 indices a query."""
     return bound(9.0 * b * m * n, 12.0 * b * (m + n) + 12.0 * b * m)
+
+
+def fps_lab_phase():
+    """[fps-lab]: the lab path (both lab entry points, every variant on
+    the card, counts set to 0 before and read after), then each variant
+    against its plain version. Returns (launches of the path, the
+    kernels-line entries of the variants)."""
+    import torch
+
+    from nesie_tpu_torch.ops import _build, fps_variants
+    from nesie_tpu_torch.ops.fps_variants import (
+        LAB_VARIANTS,
+        VARIANTS,
+        fps_variant_cuda,
+        fps_variant_ref,
+    )
+    from nesie_tpu_torch.tools import fps_experiments, fps_lab
+
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    fps_variants.reset_launch_counts()
+    # ----- the lab path
+    if fps_lab.check("cuda", VARIANTS) != 0:
+        raise AssertionError("[fps-lab] a variant differs from fps_ref on "
+                             "the check clouds")
+    k5 = {r["variant"]: r for r in fps_lab.bench(VARIANTS, reps=LAB_REPS)}
+    b5, n5, m5 = fps_lab.BENCH_SHAPE
+    k6_batch = 32  # fps_experiments' default; K5 and K6 share N and M
+    k6 = fps_experiments.run(batch=k6_batch, n=n5, m=m5,
+                             variants=["v0", *VARIANTS], iters=LAB_REPS)
+    launches = _build.launch_counts()
+    per_variant = fps_variants.launch_counts()
+    # ----- end of the lab path
+    bad = [f"K5 {k}" for k, r in k5.items() if not r["exact"]] + [
+        f"K6 {k}" for k, r in k6.items() if not r["exact_vs_xla"]]
+    if bad:
+        raise AssertionError(f"[fps-lab] indices differ from fps_ref: {bad}")
+    print(f"[fps-lab] launches during the lab path: {launches}; by variant "
+          f"{per_variant}")
+    for name, n in {**per_variant, "fps": launches["fps"],
+                    "fps_cluster": launches["fps_cluster"]}.items():
+        if n <= 0:
+            raise AssertionError(f"[fps-lab] {name} was never launched")
+
+    clouds = {"K5": (fps_lab.bench_cloud("cuda"), m5),
+              "K6": (fps_experiments.make_cloud(k6_batch, n5, "cuda"), m5)}
+    k5_tag, k6_tag = f"{b5}x{n5}->{m5}", f"{k6_batch}x{n5}->{m5}"
+    print(f"[fps-lab] ms by variant: {k5_tag} (mean of {LAB_REPS}, beside "
+          f"fps.cu {k5['v0']['ms']:.4f} and the dispatch's fps_cluster.cu "
+          f"{k5['v0_current']['ms']:.4f}) | {k6_tag} (least of "
+          f"{LAB_REPS}, beside fps.cu {k6['v0']['ms']:.4f} and "
+          f"fps_cluster.cu {k6['fps_cluster']['ms']:.4f})")
+    entries = []
+    for name, v in VARIANTS.items():
+        which = "K5" if name in LAB_VARIANTS else "K6"
+        x, m = clouds[which]
+        got = fps_variant_cuda(x, m, name)
+        want = fps_variant_ref(x, m, name)
+        if not torch.equal(got, want):
+            raise AssertionError(f"[fps-lab] {name} differs from its plain "
+                                 "version")
+        err = (got.double() - want.double()).abs().max().item()
+        plain_ms = time_ms(lambda: fps_variant_ref(x, m, name), 1)
+        b_ms, b_by = fps_bound(x.shape[0], x.shape[1], m)
+        by_shape = {k5_tag: k5[name]["ms"], k6_tag: k6[name]["ms"]}
+        print(f"[fps-lab] {name:12s} ({v.select}, {v.fetch}, rows {v.rows}, "
+              f"unroll {v.unroll}): {by_shape[k5_tag]:.4f} | "
+              f"{by_shape[k6_tag]:.4f} ms; plain {plain_ms:.4f} ms at "
+              f"{which}'s shape, bound {b_ms:.4f} ms")
+        entries.append(dict(
+            name=f"fps_variant:{name}", route="cuda",
+            source="nesie_tpu_torch/csrc/fps_variants.cu",
+            replaces=v.replaces, launches=per_variant[name],
+            max_abs_err=err, ms=by_shape[k5_tag if which == "K5" else k6_tag],
+            ms_by_shape=by_shape, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
+    print(f"[fps-lab] phase {time.perf_counter() - t0:.2f} s")
+    return launches, entries
 
 
 def timed_steps(run_step, n: int):
@@ -504,6 +593,9 @@ def main() -> int:
         lambda: three_nn_ref(seeds, fp_src))
     del xyz, centers, seeds, votes, agg_centers, grid, fp_src
 
+    # ---- 3b. the FPS lab -----------------------------------------------
+    lab_launches, lab_entries = fps_lab_phase()
+
     # ---- 4. slice phase -----------------------------------------------
     gen = torch.Generator().manual_seed(0)
     model = VoteNetNesie()  # flagship width and depth
@@ -541,11 +633,11 @@ def main() -> int:
         t0 = time.perf_counter()
         res = detector(cloud)  # ends in a host copy: synchronised
         served.append(((time.perf_counter() - t0) * 1e3, res))
-    launches = {"eval": _build.launch_counts()}
+    launches = {"lab": lab_launches, "eval": _build.launch_counts()}
     # ----- end of the eval path
     print(f"[slice] launches during the eval path: {launches['eval']}")
-    for name, n in launches["eval"].items():
-        if n <= 0:
+    for name in EVAL_KERNELS:
+        if launches["eval"][name] <= 0:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  "eval path")
     ms = float(np.median(times))
@@ -636,7 +728,7 @@ def main() -> int:
                      "nesie_tpu/ops/pallas_three_nn.py:35"),
     }
     kernels = []
-    for name in _build.KERNELS:
+    for name in EVAL_KERNELS:
         err, k_ms, p_ms = results[name]
         src, replaces = sources[name]
         by_path = {path: n[name] for path, n in launches.items()}
@@ -647,6 +739,12 @@ def main() -> int:
                             launches_by_path=by_path, max_abs_err=err,
                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=library[name]))
+    for entry in lab_entries:
+        by_path = {path: n["fps_variant"] for path, n in launches.items()}
+        by_path["lab"] = entry["launches"]
+        entry["launches_by_path"] = by_path
+        entry["launches"] = sum(by_path.values())
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -38,9 +38,10 @@ _SIGNATURES = {
     "nesie_fps_cluster_plan": [_I, _I, _I, _P],
     "nesie_ball_query": [_P, _P, _I, _I, _I, _I, _F, _F, _P, _P],
     "nesie_three_nn": [_P, _P, _I, _I, _I, _P, _P],
+    "nesie_fps_variant": [_I, _P, _P, _I, _I, _I, _P, _P],
 }
 
-KERNELS = ("fps", "fps_cluster", "ball_query", "three_nn")
+KERNELS = ("fps", "fps_cluster", "ball_query", "three_nn", "fps_variant")
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lib = None

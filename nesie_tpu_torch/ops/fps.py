@@ -24,6 +24,13 @@ def fps_ref(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
     ``min(dist, (dx*dx + dy*dy) + dz*dz)`` and the first index of the
     maximum (``torch.argmax`` returns the first maximal index).
     """
+    return fps_steps(xyz, num_samples,
+                     lambda dist: dist.argmax(dim=1, keepdim=True))
+
+
+def fps_steps(xyz: torch.Tensor, num_samples: int, select) -> torch.Tensor:
+    """``fps_ref``'s loop with the next index found by ``select``: the
+    (B, N) distances -> (B, 1) int64 indices."""
     xyz = xyz.float()
     B, N, _ = xyz.shape
     x, y, z = xyz.unbind(-1)
@@ -35,7 +42,7 @@ def fps_ref(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
         dy = y - y.gather(1, last)
         dz = z - z.gather(1, last)
         dist = torch.minimum(dist, dx * dx + dy * dy + dz * dz)
-        last = dist.argmax(dim=1, keepdim=True)
+        last = select(dist)
         out[:, i] = last[:, 0].to(torch.int32)
     return out
 

@@ -18,6 +18,8 @@ from nesie_tpu_torch.ops.fps import (
     fps_cuda,
     fps_ref,
 )
+from nesie_tpu_torch.ops import fps_variants
+from nesie_tpu_torch.ops.fps_variants import VARIANTS, fps_variant_cuda
 from nesie_tpu_torch.ops.three_nn import three_nn_cuda, three_nn_ref
 
 torch.set_num_threads(1)
@@ -117,6 +119,43 @@ def test_fps_dispatch_by_batch(cuda):
     after = _build.launch_counts()
     assert after["fps_cluster"] == counts["fps_cluster"] + 1
     assert after["fps"] == counts["fps"] + 1
+
+
+_VARIANT_SHAPES = [(1, 1000, 1), (3, 1000, 1000), (7, 4099, 256),
+                   (8, 40000, 2048)]
+_WANT = {}
+
+
+def _fps_oracle(xyz, m):
+    key = (tuple(xyz.shape), m)
+    if key not in _WANT:  # one fps_ref per shape for all eight variants
+        _WANT[key] = fps_ref(xyz, m)
+    return _WANT[key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,m", _VARIANT_SHAPES)
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_fps_variant_kernel_matches_plain(cuda, name, b, n, m):
+    """M = N at (3, 1000); odd B at 1, 3 and 7 leaves v3's last block one
+    row; N = 4099 is a multiple of no block size."""
+    xyz = _uniform((b, n, 3), seed=n + b).to(cuda)
+    before = _build.launch_counts()["fps_variant"]
+    before_v = fps_variants.launch_counts()[name]
+    got = fps_variant_cuda(xyz, m, name)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fps_variant"] == before + 1
+    assert fps_variants.launch_counts()[name] == before_v + 1
+    assert torch.equal(got, _fps_oracle(xyz, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_fps_variant_kernel_lattice_ties(cuda, name):
+    g = torch.arange(8.0)
+    xyz = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
+    xyz = xyz.reshape(1, -1, 3).contiguous().to(cuda)
+    assert torch.equal(fps_variant_cuda(xyz, 200, name), fps_ref(xyz, 200))
 
 
 @pytest.mark.gpu

@@ -155,7 +155,8 @@ def test_cpu_tensors_take_plain_versions():
     tpo.ball_query(xyz, centers, 0.3, 4)
     tpo.three_nn(centers, xyz)
     assert _build.launch_counts() == {"fps": 0, "fps_cluster": 0,
-                                      "ball_query": 0, "three_nn": 0}
+                                      "ball_query": 0, "three_nn": 0,
+                                      "fps_variant": 0}
     assert _build._lib is None
 
 
