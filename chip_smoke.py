@@ -12,9 +12,14 @@ file; fails without them. In order:
 3. kernel phases: each kernel against its plain PyTorch version on the
    same seeded inputs at the main path's shapes (integer outputs must be
    identical), with both times;
-   FPS has two kernels: ``fps.cu`` (one block per row, B > 16) and
-   ``fps_cluster.cu`` (one thread-block cluster per row, B <= 16), both
-   timed at each of the cluster kernel's shapes;
+   FPS has three kernels: ``fps_onchip.cu`` (each row held on chip across
+   a thread-block cluster, B > 16: the eval forward's 32 x 40000 -> 2048
+   and a ragged 17 x 40001, each beside ``fps.cu`` and ``fps_cluster.cu``
+   at C=2), ``fps_cluster.cu`` (one cluster per row, B <= 16, timed at
+   each of its shapes beside ``fps.cu``) and ``fps.cu`` (one block per
+   row: the lab's ``v0`` baseline and a second reference, off the eval
+   and training paths); the ball query at the eval forward's five shapes
+   (SA1-SA4, the aggregation) at B=32 and at SA1 for B=12;
    [fps-lab], counts set to 0 before and read after (path ``lab``): the
    FPS lab's two entry points run all eight step variants of
    ``csrc/fps_variants.cu`` (the TPU lab's K5 and K6) on the tie-heavy
@@ -61,7 +66,7 @@ DEVICE = "cuda"
 B, N_POINTS = 32, 40000
 # the main path's kernel shapes (flagship VoteNetNesie, sample_mod="seed")
 SA1 = dict(n=N_POINTS, m=2048, radius=0.2, k=64)
-AGG = dict(n=1024, m=256, radius=0.3, k=16)
+SEEDS = 1024  # SA2's points: the vote seeds
 SIDE_GRID = dict(m=256 * 96, n=1024)  # side-grid queries vs seeds
 FP1 = dict(m=1024, n=512)
 LARGE_FPS = dict(b=2, scenes_per_row=5, m=2048)  # rows of 200000 points
@@ -97,8 +102,12 @@ TRAIN_ATOL, TRAIN_RTOL, MIN_COSINE = 1e-4, 1e-3, 0.999
 RELAXED_PL = dict(obj_thr=0.3, cls_thr_base=0.0, cls_thr_scale=0.0,
                   cls_thr_cap=0.0, iou_thr_base=0.3, iou_thr_scale=0.0,
                   iou_thr_cap=0.3)
-# the kernels the eval path must launch (fps_variant is the lab's alone)
-EVAL_KERNELS = ("fps", "fps_cluster", "ball_query", "three_nn")
+# the kernels the eval path must launch (fps.cu and fps_variant are the
+# lab's alone: fps.cu must read 0 there)
+EVAL_KERNELS = ("fps_onchip", "fps_cluster", "ball_query", "three_nn")
+# the batched FPS kernel's shapes beyond the eval forward's: (B, N, M)
+ONCHIP_RAGGED = (17, N_POINTS + 1, 2048)
+SEMI_B = 12  # the semi step's batch, for the SA1 ball query
 LAB_REPS = 5
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense fp32, HBM3)
 FP32_OPS_PER_S = 67e12
@@ -484,9 +493,12 @@ def main() -> int:
         fps_cluster_cuda,
         fps_cluster_plan,
         fps_cuda,
+        fps_onchip_cuda,
+        fps_onchip_plan,
         fps_ref,
     )
     from nesie_tpu_torch.ops.three_nn import three_nn_cuda, three_nn_ref
+    from nesie_tpu_torch.tools.bench_ball_query import eval_shapes
 
     # ---- 1. toolchain -------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -516,13 +528,36 @@ def main() -> int:
     xyz = torch.from_numpy(np.stack(scenes)).to(dev)  # (B, 40000, 3)
     results, bounds, library = {}, {}, dict.fromkeys(_build.KERNELS)
 
-    fps_idx = fps_cuda(xyz, SA1["m"])
+    fps_idx = fps_onchip_cuda(xyz, SA1["m"])
     results["fps"] = kernel_phase(
-        f"fps B={B} N={N_POINTS} M={SA1['m']}",
+        f"fps B={B} N={N_POINTS} M={SA1['m']} (the lab's v0)",
         lambda: fps_cuda(xyz, SA1["m"]), lambda: fps_ref(xyz, SA1["m"]),
         reps=5, plain_reps=1)
     bounds["fps"] = fps_bound(B, N_POINTS, SA1["m"])
     centers = pointops.gather_points(xyz, fps_idx).contiguous()
+    ragged = torch.from_numpy(np.stack([
+        make_scene(rng, ONCHIP_RAGGED[1]) for _ in range(ONCHIP_RAGGED[0])
+    ])).to(dev)
+    for x, m, main_shape in ((xyz, SA1["m"], True),
+                             (ragged, ONCHIP_RAGGED[2], False)):
+        b, n = x.shape[:2]
+        plan = fps_onchip_plan(b, n)
+        name = f"fps_onchip B={b} N={n} M={m}"
+        res = kernel_phase(name, lambda: fps_onchip_cuda(x, m),
+                           lambda: fps_ref(x, m), reps=5, plain_reps=1)
+        if not torch.equal(fps_onchip_cuda(x, m), fps_cuda(x, m)):
+            raise AssertionError(f"{name}: fps_onchip.cu and fps.cu differ")
+        block_ms = time_ms(lambda: fps_cuda(x, m), 3)
+        c2_ms = time_ms(lambda: fps_cluster_cuda(x, m, cluster_size=2), 3)
+        b_ms, b_by = fps_bound(b, n, m)
+        print(f"[kernel] {name}: plan {plan}; fps_onchip {res[1]:.4f} ms "
+              f"({res[1] * 1e3 / (m - 1):.4f} us a step), fps.cu "
+              f"{block_ms:.4f} ms, fps_cluster C=2 {c2_ms:.4f} ms, plain "
+              f"{res[2]:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if main_shape:
+            results["fps_onchip"] = res
+            bounds["fps_onchip"] = (b_ms, b_by)
+    del ragged
 
     big = torch.from_numpy(np.stack([
         np.concatenate([make_scene(rng, N_POINTS)
@@ -552,23 +587,25 @@ def main() -> int:
             bounds["fps_cluster"] = fps_bound(b, n, m)
     del big, vote_like
 
-    results["ball_query"] = kernel_phase(
-        f"ball_query SA1 B={B} N={SA1['n']} M={SA1['m']} r={SA1['radius']} "
-        f"K={SA1['k']}",
-        lambda: ball_query_cuda(xyz, centers, SA1["radius"], SA1["k"]),
-        lambda: ball_query_ref(xyz, centers, SA1["radius"], SA1["k"]))
-    bounds["ball_query"] = ball_query_bound(
-        ball_query_cuda(xyz, centers, SA1["radius"], SA1["k"]), N_POINTS)
-    seeds = centers[:, :AGG["n"]].contiguous()
-    votes = (seeds + 0.05 * torch.randn(
-        seeds.shape, generator=torch.Generator(dev).manual_seed(1),
-        device=dev)).contiguous()
-    agg_centers = votes[:, :AGG["m"]].contiguous()
-    kernel_phase(
-        f"ball_query aggregation B={B} N={AGG['n']} M={AGG['m']} "
-        f"r={AGG['radius']} K={AGG['k']}",
-        lambda: ball_query_cuda(votes, agg_centers, AGG["radius"], AGG["k"]),
-        lambda: ball_query_ref(votes, agg_centers, AGG["radius"], AGG["k"]))
+    bq_shapes = eval_shapes(xyz, centers)
+    bq_shapes.append(("SA1", xyz[:SEMI_B].contiguous(),
+                      centers[:SEMI_B].contiguous(), SA1["radius"], SA1["k"]))
+    bq_ms = {}
+    for what, x, c, r, k in bq_shapes:
+        b, n, m = x.shape[0], x.shape[1], c.shape[1]
+        tag = f"{what} B={b} N={n} M={m} r={r} K={k}"
+        res = kernel_phase(f"ball_query {tag}",
+                           lambda: ball_query_cuda(x, c, r, k),
+                           lambda: ball_query_ref(x, c, r, k))
+        b_ms, b_by = ball_query_bound(ball_query_cuda(x, c, r, k), n)
+        bq_ms[tag] = dict(ms=res[1], plain_ms=res[2], bound_ms=b_ms,
+                          bound_by=b_by)
+        print(f"[kernel] ball_query {tag}: {res[1]:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        if what == "SA1" and b == B:
+            results["ball_query"] = res
+            bounds["ball_query"] = (b_ms, b_by)
+    seeds = centers[:, :SEEDS].contiguous()
 
     # side-grid queries: 96 face points in each of 256 boxes around seeds
     box_c = seeds[:, :256]
@@ -591,7 +628,7 @@ def main() -> int:
         f"three_nn FP1 B={B} M={FP1['m']} N={FP1['n']}",
         lambda: three_nn_cuda(seeds, fp_src),
         lambda: three_nn_ref(seeds, fp_src))
-    del xyz, centers, seeds, votes, agg_centers, grid, fp_src
+    del xyz, centers, seeds, bq_shapes, grid, fp_src
 
     # ---- 3b. the FPS lab -----------------------------------------------
     lab_launches, lab_entries = fps_lab_phase()
@@ -640,6 +677,8 @@ def main() -> int:
         if launches["eval"][name] <= 0:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  "eval path")
+    if launches["eval"]["fps"] != 0:
+        raise AssertionError("fps.cu was launched on the eval path")
     ms = float(np.median(times))
     print(f"[slice] eval forward B={B} x {N_POINTS} x 4: median {ms:.3f} ms "
           f"per batch over {len(times)} runs ({times}), "
@@ -718,6 +757,8 @@ def main() -> int:
     gpu_vs_cpu_training_step(dev)
 
     sources = {
+        "fps_onchip": ("nesie_tpu_torch/csrc/fps_onchip.cu",
+                       "nesie_tpu/ops/pallas_fps.py:73"),
         "fps": ("nesie_tpu_torch/csrc/fps.cu",
                 "nesie_tpu/ops/pallas_fps.py:73"),
         "fps_cluster": ("nesie_tpu_torch/csrc/fps_cluster.cu",
@@ -728,17 +769,21 @@ def main() -> int:
                      "nesie_tpu/ops/pallas_three_nn.py:35"),
     }
     kernels = []
-    for name in EVAL_KERNELS:
+    for name, (src, replaces) in sources.items():
         err, k_ms, p_ms = results[name]
-        src, replaces = sources[name]
         by_path = {path: n[name] for path, n in launches.items()}
         b_ms, b_by = bounds[name]
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces,
-                            launches=sum(by_path.values()),
-                            launches_by_path=by_path, max_abs_err=err,
-                            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=library[name]))
+        entry = dict(name=name, route="cuda", source=src, replaces=replaces,
+                     launches=sum(by_path.values()), launches_by_path=by_path,
+                     max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=library[name])
+        if name == "fps":
+            entry["role"] = ("the FPS lab's v0 baseline and a second "
+                             "reference for fps_onchip; off the eval and "
+                             "training paths")
+        if name == "ball_query":
+            entry["by_shape"] = bq_ms
+        kernels.append(entry)
     for entry in lab_entries:
         by_path = {path: n["fps_variant"] for path, n in launches.items()}
         by_path["lab"] = entry["launches"]

@@ -51,6 +51,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "fps_key.cuh"
 #include "sq_dist.cuh"
 
 namespace cg = cooperative_groups;
@@ -65,30 +66,7 @@ constexpr int kMaxCluster = 16;
 // less room for the kernel's static arrays
 constexpr int kSmemLimit = 232448 - 1024;
 
-// A (value, index) pair as one 64-bit key whose unsigned order is the
-// tie rule of fps.cu: larger value first, then lower index. Distances are
-// >= 0, so their float bits order as unsigned integers; 0 is "no point".
-__device__ __forceinline__ unsigned long long pack(float v, int i) {
-  return (static_cast<unsigned long long>(__float_as_uint(v)) << 32) |
-         (0xffffffffu - static_cast<unsigned>(i));
-}
-
-__device__ __forceinline__ int unpack_index(unsigned long long key) {
-  return static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
-}
-
-__device__ __forceinline__ unsigned long long warp_max(unsigned long long k) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_down_sync(0xffffffffu, k, off);
-    k = o > k ? o : k;
-  }
-  return k;
-}
-
-struct Candidate {
-  unsigned long long key;
-  float x, y, z;
-};
+// pack, unpack_index, warp_max and Candidate: fps_key.cuh
 
 template <bool kCoordsInSmem>
 __global__ void __launch_bounds__(kMaxThreads)

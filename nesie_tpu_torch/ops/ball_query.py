@@ -60,7 +60,10 @@ def ball_query_ref(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
 
 def ball_query_cuda(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
                     num_samples: int, min_radius: float = 0.0) -> torch.Tensor:
-    """Launch ``csrc/ball_query.cu``: one warp per center."""
+    """Launch ``csrc/ball_query.cu``: a CTA of up to 256 centers (one
+    thread each) of one row scans the row's points in shared-memory tiles;
+    a query of too few centers to fill the card takes one warp per center.
+    The C entry point picks the path and sizes the CTA itself."""
     _build.check_cuda_input("xyz", xyz)
     _build.check_cuda_input("centers", centers)
     B, N, _ = xyz.shape

@@ -2,11 +2,14 @@
 PyTorch version.
 
 Counterpart of ``nesie_tpu/ops/pallas_fps.py``, whose two Pallas kernels
-have a CUDA kernel each: ``csrc/fps.cu`` (one block per row, for the
-batched ``_fps_batched_kernel``) and ``csrc/fps_cluster.cu`` (one
-thread-block cluster per row, for the single-row ``_fps_kernel``).
-``fps_ref`` is the plain version of both. ``ops.pointops.
-furthest_point_sample`` picks between the three.
+have CUDA kernels: ``csrc/fps_onchip.cu`` (each row held on chip across
+a thread-block cluster, for the batched ``_fps_batched_kernel``),
+``csrc/fps_cluster.cu`` (one cluster per row, for the single-row
+``_fps_kernel``) and ``csrc/fps.cu`` (one block per row: the first port
+of the batched kernel, kept as the FPS lab's ``v0`` baseline and a second
+reference). ``fps_ref`` is the plain version of all three.
+``ops.pointops.furthest_point_sample`` picks between the plain version,
+``fps_cluster`` and ``fps_onchip``.
 """
 from __future__ import annotations
 
@@ -94,4 +97,46 @@ def fps_cluster_cuda(xyz: torch.Tensor, num_samples: int,
         return out
     _build.launch("fps_cluster", "nesie_fps_cluster", xyz.data_ptr(), B, N,
                   num_samples, cluster_size, out.data_ptr())
+    return out
+
+
+def fps_onchip_plan(batch: int, n: int, cluster_size: int = 0,
+                    threads: int = 0) -> dict:
+    """The launch plan ``fps_onchip_cuda`` takes for (batch, n): cluster
+    size, threads per CTA, points per thread held in registers (0: the
+    streaming kernel, coordinates read from L2), dynamic shared memory
+    bytes, whether the streaming kernel needs a (B, N) scratch, and how
+    many clusters are resident at once. ``cluster_size`` (1 to 8) and
+    ``threads`` (a cap) ask for a plan; 0 lets the plan choose. Raises
+    where no plan fits."""
+    plan = (ctypes.c_int * 6)()
+    err = _build.library().nesie_fps_onchip_plan(
+        batch, n, cluster_size, threads, ctypes.addressof(plan))
+    if err != 0:
+        raise RuntimeError(f"fps_onchip: no launch plan for B={batch}, N={n}, "
+                           f"cluster_size={cluster_size}, threads={threads} "
+                           f"(cudaError {err})")
+    return dict(cluster=plan[0], threads=plan[1], points_per_thread=plan[2],
+                smem_bytes=plan[3], scratch=bool(plan[4]),
+                resident_clusters=plan[5])
+
+
+def fps_onchip_cuda(xyz: torch.Tensor, num_samples: int,
+                    cluster_size: int = 0, threads: int = 0) -> torch.Tensor:
+    """Launch ``csrc/fps_onchip.cu``: each row held on chip across a
+    thread-block cluster. ``cluster_size`` and ``threads`` ask for a plan
+    (see ``fps_onchip_plan``); 0 lets the plan choose."""
+    _build.check_cuda_input("xyz", xyz)
+    B, N, _ = xyz.shape
+    _check_samples(N, num_samples)
+    out = torch.empty((B, num_samples), dtype=torch.int32, device=xyz.device)
+    if B == 0:
+        return out
+    plan = fps_onchip_plan(B, N, cluster_size, threads)
+    scratch = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+               if plan["scratch"] else None)
+    _build.launch("fps_onchip", "nesie_fps_onchip", xyz.data_ptr(), B, N,
+                  num_samples, cluster_size, threads,
+                  None if scratch is None else scratch.data_ptr(),
+                  out.data_ptr())
     return out

@@ -2,13 +2,16 @@
 """Where the time of one semi-supervised train step goes, on one card.
 
     python3 -m nesie_tpu_torch.tools.profile_train_step [--steps 3]
+        [--supervised]
 
 Needs one CUDA card and nvcc. Builds the flagship VoteNetNesie (seeded
 random weights), the reference semi-step batch of ``chip_smoke.py``
 (4 labeled + 8 unlabeled synthetic rooms x 40000 x 4), runs two warm-up
 steps, then ``--steps`` steps under ``torch.profiler`` (CPU and CUDA
-activities). Prints the wall time per step, the device's busy time (the
-sum of the kernels' device time, one stream) and idle share, and the
+activities). ``--supervised`` profiles the supervised step on the first 8
+scenes of that batch instead (``chip_smoke.py``'s B=8 step). Prints the
+wall time per step, the device's busy time (the sum of the kernels'
+device time, one stream) and idle share, and the
 kernels grouped by kind with their device ms per step, largest first,
 then one JSON line of the same numbers.
 """
@@ -28,12 +31,14 @@ from nesie_tpu_torch.data.synthetic import semi_batch
 from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_
 from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
 from nesie_tpu_torch.train.state import create_train_state, make_lr_schedule
+from nesie_tpu_torch.train.step import make_supervised_train_step
 
 # kernel-name patterns, first match wins
 GROUPS = (
     ("fps_cluster (CUDA, ours)", r"fps_cluster_kernel"),
+    ("fps_onchip (CUDA, ours)", r"fps_onchip"),
     ("fps (CUDA, ours)", r"fps_kernel"),
-    ("ball_query (CUDA, ours)", r"ball_query_kernel"),
+    ("ball_query (CUDA, ours)", r"ball_query"),
     ("three_nn (CUDA, ours)", r"three_nn_kernel"),
     ("fp32 GEMM (cuBLAS)", r"gemm|sgemm|cutlass|Kernel2|ampere|sm90"),
     ("reductions (BN stats, sums, max)", r"reduce|Reduce"),
@@ -57,6 +62,7 @@ def kernel_times(prof) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--supervised", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
@@ -77,6 +83,20 @@ def main() -> int:
     def run():
         ulb[0], _ = step(state, ulb[0], batch, generator=gen)
 
+    what = f"semi step {n_lab}+{n_unl} x 40000 x 4"
+    if args.supervised:
+        b = 8
+        sup_batch = dict(points=batch["points_raw_s"][:b],
+                         gt_boxes=batch["gt_boxes"][:b],
+                         gt_labels=batch["gt_labels"][:b],
+                         gt_valid=batch["gt_valid"][:b],
+                         aug=batch["aug_s"].slice(0, b))
+        sup = make_supervised_train_step()
+        what = f"supervised step B={b} x 40000 x 4"
+
+        def run():
+            sup(state, sup_batch, generator=gen)
+
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -94,7 +114,7 @@ def main() -> int:
         label = next((g for g, pat in GROUPS if re.search(pat, name)),
                      "other")
         groups[label] = groups.get(label, 0.0) + ms
-    print(f"semi step {n_lab}+{n_unl} x 40000 x 4 under the profiler: wall "
+    print(f"{what} under the profiler: wall "
           f"{wall:.3f} ms per step, device busy {busy:.3f} ms, idle share "
           f"{1 - busy / wall:.3f}")
     for label, ms in sorted(groups.items(), key=lambda kv: -kv[1]):

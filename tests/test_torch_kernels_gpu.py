@@ -16,6 +16,8 @@ from nesie_tpu_torch.ops.fps import (
     fps_cluster_cuda,
     fps_cluster_plan,
     fps_cuda,
+    fps_onchip_cuda,
+    fps_onchip_plan,
     fps_ref,
 )
 from nesie_tpu_torch.ops import fps_variants
@@ -118,7 +120,68 @@ def test_fps_dispatch_by_batch(cuda):
     furthest_point_sample(xyz, 64)
     after = _build.launch_counts()
     assert after["fps_cluster"] == counts["fps_cluster"] + 1
-    assert after["fps"] == counts["fps"] + 1
+    assert after["fps_onchip"] == counts["fps_onchip"] + 1
+    assert after["fps"] == counts["fps"]
+
+
+def _onchip_cases():
+    """(B, N, M, cluster): the eval forward's SA1 and a ragged B > 16 row
+    under the plan's own choice, then every cluster size at a ragged N
+    (5003: a multiple of no cluster size, of no thread count and of 4)."""
+    return ([(32, 40000, 2048, 0), (17, 40001, 2048, 0)]
+            + [(17, 5003, 700, c) for c in range(1, 9)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,m,cluster", _onchip_cases())
+def test_fps_onchip_kernel_matches_plain(cuda, b, n, m, cluster):
+    xyz = _uniform((b, n, 3), seed=n + b).to(cuda)  # one oracle per shape
+    plan = fps_onchip_plan(b, n, cluster)
+    if cluster:
+        assert plan["cluster"] == cluster
+    assert plan["points_per_thread"] > 0  # these rows fit on chip
+    before = _build.launch_counts()["fps_onchip"]
+    got = fps_onchip_cuda(xyz, m, cluster_size=cluster)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fps_onchip"] == before + 1
+    assert torch.equal(got, _fps_oracle(xyz, m))
+    assert torch.equal(got, fps_cuda(xyz, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads", [128, 256, 1024])
+def test_fps_onchip_thread_counts(cuda, threads):
+    """Fewer threads hold more points each in registers."""
+    xyz = _uniform((17, 12000, 3), seed=threads).to(cuda)
+    plan = fps_onchip_plan(17, 12000, 2, threads)
+    assert 0 < plan["threads"] <= threads and plan["points_per_thread"] > 0
+    got = fps_onchip_cuda(xyz, 300, cluster_size=2, threads=threads)
+    assert torch.equal(got, fps_ref(xyz, 300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,cluster,scratch", [(120000, 4, False),
+                                               (2000000, 1, True)])
+def test_fps_onchip_streaming_rows(cuda, n, cluster, scratch):
+    """Slices past the register layout read their coordinates from L2,
+    with their distances in shared memory or, past that, in scratch."""
+    xyz = _uniform((17, n, 3), seed=13).to(cuda)
+    plan = fps_onchip_plan(17, n, cluster)
+    assert plan["points_per_thread"] == 0 and plan["scratch"] == scratch
+    got = fps_onchip_cuda(xyz, 40, cluster_size=cluster)
+    assert torch.equal(got, fps_ref(xyz, 40))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,cluster", [(17, 0), (32, 0), (17, 3), (32, 8)])
+def test_fps_onchip_lattice_ties(cuda, b, cluster):
+    g = torch.arange(20.0)
+    xyz = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
+    xyz = xyz.reshape(1, -1, 3).expand(b, -1, -1).contiguous().to(cuda)
+    got = fps_onchip_cuda(xyz, 500, cluster_size=cluster)
+    want = fps_ref(xyz[:1], 500).expand(b, -1)
+    assert torch.equal(got, want)
+    assert torch.equal(got, fps_cuda(xyz, 500))
 
 
 _VARIANT_SHAPES = [(1, 1000, 1), (3, 1000, 1000), (7, 4099, 256),
@@ -178,6 +241,66 @@ def test_ball_query_kernel_matches_plain(cuda, case):
         assert (got == 0).all()
 
 
+# centers per query: 2 x 300 take the warp-per-center kernel, 2 x 4500
+# the shared-memory tile kernel (the switch is at 64 centers an SM)
+_BQ_CENTERS = {"warp": 300, "tile": 4500}
+
+
+def _bq_case(case, m, dev):
+    """(xyz, centers, radius, K, min_radius) of one ball-query edge case
+    with m centers a row."""
+    xyz = _uniform((2, 2500, 3), seed=21)
+    centers = _uniform((2, m, 3), seed=22)
+    on_points = torch.arange(m) % 2500  # centers on source points
+    radius, k, min_r = 0.15, 32, 0.0
+    if case == "ragged_tiles":  # N past a multiple of the 1024-point tile,
+        xyz = _uniform((2, 3077, 3), seed=23)  # M of no CTA size
+        centers = _uniform((2, m + 33, 3), seed=24)
+    elif case == "few_hits":  # fewer hits than K almost everywhere
+        radius, k = 0.05, 64
+    elif case == "duplicate_sources":  # d2 == 0 hits, in index order
+        xyz[:, 1200:2400] = xyz[:, :1200]
+        centers = xyz[:, on_points]
+        radius = 0.02
+    elif case == "min_radius":
+        radius, min_r = 0.3, 0.2
+    elif case == "zero_radius":  # only d2 <= 0 qualifies
+        centers = xyz[:, (on_points + 100) % 2500]
+        radius = 0.0
+    elif case == "no_neighbour":
+        centers = centers + 5.0
+    elif case == "saturated":  # every center full after a few points
+        radius, k = 2.0, 16
+    return (xyz.to(dev), centers.contiguous().to(dev), radius, k, min_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["tile", "warp"])
+@pytest.mark.parametrize("case", ["ragged_tiles", "few_hits",
+                                  "duplicate_sources", "min_radius",
+                                  "zero_radius", "no_neighbour", "saturated"])
+def test_ball_query_kernel_edge_cases(cuda, case, path):
+    xyz, centers, radius, k, min_r = _bq_case(case, _BQ_CENTERS[path], cuda)
+    before = _build.launch_counts()["ball_query"]
+    got = ball_query_cuda(xyz, centers, radius, k, min_r)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["ball_query"] == before + 1
+    assert torch.equal(got, ball_query_ref(xyz, centers, radius, k, min_r))
+    if case == "no_neighbour":
+        assert (got == 0).all()
+
+
+@pytest.mark.gpu
+def test_ball_query_kernel_sa1_shape(cuda):
+    """SA1 at B=2: 40000 points -> 2048 centers, r 0.2, K 64. 4096
+    centers take the warp-per-center path; chip_smoke.py holds the tile
+    path to the plain version at SA1 for B=32 and 12."""
+    xyz = _uniform((2, 40000, 3), seed=25, scale=4.0).to(cuda)
+    centers = xyz[:, fps_cuda(xyz, 2048)[0].long()].contiguous()
+    got = ball_query_cuda(xyz, centers, 0.2, 64)
+    assert torch.equal(got, ball_query_ref(xyz, centers, 0.2, 64))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["random", "duplicate_sources"])
 def test_three_nn_kernel_matches_plain(cuda, case):
@@ -191,14 +314,15 @@ def test_three_nn_kernel_matches_plain(cuda, case):
     assert torch.equal(got, three_nn_ref(q, s))
 
 
-@pytest.mark.parametrize("kernel", ["fps", "fps_cluster", "ball_query",
-                                    "three_nn"])
+@pytest.mark.parametrize("kernel", ["fps", "fps_cluster", "fps_onchip",
+                                    "ball_query", "three_nn"])
 def test_wrappers_refuse_cpu_tensors(kernel):
     """A kernel wrapper never runs the plain version in its place."""
     x = _uniform((1, 64, 3), seed=5)
     call = {
         "fps": lambda: fps_cuda(x, 8),
         "fps_cluster": lambda: fps_cluster_cuda(x, 8),
+        "fps_onchip": lambda: fps_onchip_cuda(x, 8),
         "ball_query": lambda: ball_query_cuda(x, x, 0.2, 4),
         "three_nn": lambda: three_nn_cuda(x, x),
     }[kernel]
@@ -216,3 +340,13 @@ def test_wrappers_refuse_bad_layouts(cuda):
                         0.2, 4)
     with pytest.raises(ValueError):
         three_nn_cuda(x[..., :2].contiguous(), x)
+
+
+@pytest.mark.gpu
+def test_fps_onchip_plan_raises_without_a_plan(cuda):
+    """A cluster size the kernel does not take raises; nothing falls back."""
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        fps_onchip_plan(32, 40000, 9)
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        fps_onchip_cuda(_uniform((17, 64, 3), seed=8).to(cuda), 8,
+                        cluster_size=9)

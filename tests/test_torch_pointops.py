@@ -48,10 +48,13 @@ def _fps_cases():
         "normal": (rng.normal(size=(2, 300, 3)), 64),
         "lattice_ties": (grid, 100),
         "duplicates": (dup, 200),
+        # B > 16: the card takes fps_onchip; K1 runs all 17 rows in one cell
+        "batch_17": (rng.normal(size=(17, 130, 3)), 40),
     }
 
 
-@pytest.mark.parametrize("case", ["normal", "lattice_ties", "duplicates"])
+@pytest.mark.parametrize("case", ["normal", "lattice_ties", "duplicates",
+                                  "batch_17"])
 def test_fps_matches_pallas(pallas_interpret, case):
     xyz, m = _fps_cases()[case]
     xyz = xyz.astype(np.float32)
@@ -154,10 +157,21 @@ def test_cpu_tensors_take_plain_versions():
     centers = tpo.gather_points(xyz, idx)
     tpo.ball_query(xyz, centers, 0.3, 4)
     tpo.three_nn(centers, xyz)
-    assert _build.launch_counts() == {"fps": 0, "fps_cluster": 0,
-                                      "ball_query": 0, "three_nn": 0,
-                                      "fps_variant": 0}
+    assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+    assert set(_build.KERNELS) == {"fps", "fps_cluster", "fps_onchip",
+                                   "ball_query", "three_nn", "fps_variant"}
     assert _build._lib is None
+
+
+@pytest.mark.parametrize("batch,kernel", [(1, "fps_cluster"),
+                                          (16, "fps_cluster"),
+                                          (17, "fps_onchip"),
+                                          (32, "fps_onchip")])
+def test_fps_kernel_for(batch, kernel):
+    """The dispatch rule for CUDA tensors: requests and training steps
+    (B <= 16) take fps_cluster, the B=32 eval forward fps_onchip."""
+    assert tpo.fps_kernel_for(batch) == kernel
+    assert kernel in _build.KERNELS
 
 
 def test_three_nn_distance_is_differentiable():
