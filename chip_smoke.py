@@ -12,14 +12,19 @@ file; fails without them. In order:
 3. kernel phases: each kernel against its plain PyTorch version on the
    same seeded inputs at the main path's shapes (integer outputs must be
    identical), with both times;
-   FPS has three kernels: ``fps_onchip.cu`` (each row held on chip across
-   a thread-block cluster, B > 16: the eval forward's 32 x 40000 -> 2048
-   and a ragged 17 x 40001, each beside ``fps.cu`` and ``fps_cluster.cu``
-   at C=2), ``fps_cluster.cu`` (one cluster per row, B <= 16, timed at
-   each of its shapes beside ``fps.cu``) and ``fps.cu`` (one block per
-   row: the lab's ``v0`` baseline and a second reference, off the eval
-   and training paths); the ball query at the eval forward's five shapes
-   (SA1-SA4, the aggregation) at B=32 and at SA1 for B=12;
+   FPS runs ``fps_onchip.cu`` on both paths (each row held on chip on
+   one CTA or across a thread-block cluster, a mailbox exchange across a
+   cluster): B > 16 (the eval forward's 32 x 40000 -> 2048 and a ragged
+   17 x 40001, each beside the barrier exchange, ``fps.cu`` and
+   ``fps_cluster.cu`` at C=2) and B <= 16 (the four shapes of requests
+   and training steps, each beside ``fps_cluster.cu`` and the barrier
+   exchange), all held to ``fps_ref`` and to each other. ``fps_cluster.cu``
+   (one cluster per row) and ``fps.cu`` (one block per row: the lab's
+   ``v0`` baseline) are second references, off the eval and training
+   paths; the ball query at the eval forward's five shapes (SA1-SA4, the
+   aggregation) at B=32 and at SA1 for B=12; three-NN at the side grid,
+   the box grid and the two FP shapes, each beside ``torch.topk`` of
+   ``torch.cdist``;
    [fps-lab], counts set to 0 before and read after (path ``lab``): the
    FPS lab's two entry points run all eight step variants of
    ``csrc/fps_variants.cu`` (the TPU lab's K5 and K6) on the tie-heavy
@@ -69,8 +74,13 @@ SA1 = dict(n=N_POINTS, m=2048, radius=0.2, k=64)
 SEEDS = 1024  # SA2's points: the vote seeds
 SIDE_GRID = dict(m=256 * 96, n=1024)  # side-grid queries vs seeds
 FP1 = dict(m=1024, n=512)
+# three-NN's shapes at B=32: (what, queries a row, sources a row)
+K4_SHAPES = (("side grid", SIDE_GRID["m"], SIDE_GRID["n"]),
+             ("box grid", 256 * 64, SEEDS),
+             ("FP1", FP1["m"], FP1["n"]),
+             ("FP2", 512, 256))
 LARGE_FPS = dict(b=2, scenes_per_row=5, m=2048)  # rows of 200000 points
-# the cluster FPS kernel's shapes: (what, B, N, M)
+# the B <= 16 FPS shapes (the TPU's single-row kernel's): (what, B, N, M)
 K2_SHAPES = (("a Detector request", 1, N_POINTS, 2048),
              ("semi-step SA1", 12, N_POINTS, 2048),
              ("vote-mode aggregation", 12, 1024, 256),
@@ -102,15 +112,20 @@ TRAIN_ATOL, TRAIN_RTOL, MIN_COSINE = 1e-4, 1e-3, 0.999
 RELAXED_PL = dict(obj_thr=0.3, cls_thr_base=0.0, cls_thr_scale=0.0,
                   cls_thr_cap=0.0, iou_thr_base=0.3, iou_thr_scale=0.0,
                   iou_thr_cap=0.3)
-# the kernels the eval path must launch (fps.cu and fps_variant are the
-# lab's alone: fps.cu must read 0 there)
-EVAL_KERNELS = ("fps_onchip", "fps_cluster", "ball_query", "three_nn")
+# the kernels the eval and training paths must launch; fps.cu and
+# fps_cluster.cu are second references and must read 0 on both
+EVAL_KERNELS = ("fps_onchip", "fps_onchip_small", "ball_query", "three_nn")
+TRAIN_KERNELS = ("fps_onchip_small", "ball_query", "three_nn")
+OFF_PATH = ("fps", "fps_cluster")
 # the batched FPS kernel's shapes beyond the eval forward's: (B, N, M)
 ONCHIP_RAGGED = (17, N_POINTS + 1, 2048)
 SEMI_B = 12  # the semi step's batch, for the SA1 ball query
 LAB_REPS = 5
-# the H100 SXM's published peaks (NVIDIA's data sheet, dense fp32, HBM3)
-FP32_OPS_PER_S = 67e12
+# The rate of fp32 operations that are not FMAs: 132 SMs x 128 lanes x
+# the 1.98 GHz boost clock (the data sheet's 67 TFLOP/s counts an FMA as
+# two). sq_dist.cuh forbids contraction, so none of the point kernels can
+# use FMAs; and HBM3's published 3.35 TB/s.
+NON_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -163,9 +178,9 @@ def kernel_phase(name, kernel, plain, reps=10, plain_reps=2):
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
     """The least time the card could take (ms) and what bounds it: fp32
-    operations at the card's peak, or each input read and each output
-    written once at its memory rate."""
-    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    operations at the card's rate for operations that are not FMAs, or
+    each input read and each output written once at its memory rate."""
+    t_ops, t_bytes = ops / NON_FMA_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -497,7 +512,11 @@ def main() -> int:
         fps_onchip_plan,
         fps_ref,
     )
-    from nesie_tpu_torch.ops.three_nn import three_nn_cuda, three_nn_ref
+    from nesie_tpu_torch.ops.three_nn import (
+        three_nn_cuda,
+        three_nn_plan,
+        three_nn_ref,
+    )
     from nesie_tpu_torch.tools.bench_ball_query import eval_shapes
 
     # ---- 1. toolchain -------------------------------------------------
@@ -545,13 +564,20 @@ def main() -> int:
         name = f"fps_onchip B={b} N={n} M={m}"
         res = kernel_phase(name, lambda: fps_onchip_cuda(x, m),
                            lambda: fps_ref(x, m), reps=5, plain_reps=1)
-        if not torch.equal(fps_onchip_cuda(x, m), fps_cuda(x, m)):
-            raise AssertionError(f"{name}: fps_onchip.cu and fps.cu differ")
+        got = fps_onchip_cuda(x, m)
+        if not (torch.equal(got, fps_cuda(x, m)) and torch.equal(
+                got, fps_onchip_cuda(x, m, exchange="barrier"))):
+            raise AssertionError(f"{name}: fps_onchip.cu's exchanges or "
+                                 "fps.cu differ")
+        barrier_plan = fps_onchip_plan(b, n, exchange="barrier")
+        barrier_ms = time_ms(
+            lambda: fps_onchip_cuda(x, m, exchange="barrier"), 5)
         block_ms = time_ms(lambda: fps_cuda(x, m), 3)
         c2_ms = time_ms(lambda: fps_cluster_cuda(x, m, cluster_size=2), 3)
         b_ms, b_by = fps_bound(b, n, m)
         print(f"[kernel] {name}: plan {plan}; fps_onchip {res[1]:.4f} ms "
-              f"({res[1] * 1e3 / (m - 1):.4f} us a step), fps.cu "
+              f"({res[1] * 1e3 / (m - 1):.4f} us a step); the barrier "
+              f"exchange {barrier_ms:.4f} ms (plan {barrier_plan}); fps.cu "
               f"{block_ms:.4f} ms, fps_cluster C=2 {c2_ms:.4f} ms, plain "
               f"{res[2]:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         if main_shape:
@@ -568,23 +594,40 @@ def main() -> int:
         (vb, vn, 3), generator=torch.Generator(dev).manual_seed(3),
         device=dev)).contiguous()
     k2_inputs = (xyz[:K2_SHAPES[0][1]], xyz[:K2_SHAPES[1][1]], vote_like, big)
+    k2_ms = {}
     for i, ((what, b, n, m), x) in enumerate(zip(K2_SHAPES, k2_inputs)):
         assert tuple(x.shape) == (b, n, 3), (what, x.shape)
-        plan = fps_cluster_plan(b, n)
-        name = f"fps_cluster B={b} N={n} M={m} ({what})"
-        res = kernel_phase(name, lambda: fps_cluster_cuda(x, m),
-                           lambda: fps_ref(x, m),
-                           reps=3 if n > N_POINTS else 5, plain_reps=1)
-        if not torch.equal(fps_cuda(x, m), fps_cluster_cuda(x, m)):
-            raise AssertionError(f"{name}: fps.cu and fps_cluster.cu differ")
-        block_ms = time_ms(lambda: fps_cuda(x, m), 3)
-        b_ms, _ = fps_bound(b, n, m)
-        print(f"[kernel] {name}: plan {plan}; fps_cluster {res[1]:.4f} ms, "
-              f"fps.cu {block_ms:.4f} ms, plain {res[2]:.4f} ms, bound "
-              f"{b_ms:.4f} ms")
+        plan = fps_onchip_plan(b, n)
+        barrier_plan = fps_onchip_plan(b, n, exchange="barrier")
+        cluster_plan = fps_cluster_plan(b, n)
+        tag = f"B={b} N={n} M={m}"
+        reps = 3 if n > N_POINTS else 5
+        res = kernel_phase(f"fps_onchip {tag} ({what})",
+                           lambda: fps_onchip_cuda(x, m),
+                           lambda: fps_ref(x, m), reps=reps, plain_reps=1)
+        got = fps_onchip_cuda(x, m)
+        if not (torch.equal(got, fps_cluster_cuda(x, m)) and torch.equal(
+                got, fps_onchip_cuda(x, m, exchange="barrier"))):
+            raise AssertionError(f"fps {tag}: fps_onchip.cu, its barrier "
+                                 "exchange and fps_cluster.cu differ")
+        cluster_ms = time_ms(lambda: fps_cluster_cuda(x, m), reps)
+        barrier_ms = time_ms(lambda: fps_onchip_cuda(x, m, exchange="barrier"),
+                             reps)
+        b_ms, b_by = fps_bound(b, n, m)
+        k2_ms[tag] = dict(ms=res[1], fps_cluster_ms=cluster_ms,
+                          barrier_ms=barrier_ms, plain_ms=res[2],
+                          bound_ms=b_ms, bound_by=b_by, plan=plan)
+        print(f"[kernel] fps {tag} ({what}): fps_onchip {res[1]:.4f} ms "
+              f"(plan {plan}); fps_cluster.cu {cluster_ms:.4f} ms (plan "
+              f"{cluster_plan}); the barrier exchange {barrier_ms:.4f} ms "
+              f"(plan {barrier_plan}); plain {res[2]:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); identical to fps_ref and to each "
+              "other")
         if i == K2_MAIN:
-            results["fps_cluster"] = res
-            bounds["fps_cluster"] = fps_bound(b, n, m)
+            results["fps_onchip_small"] = res
+            bounds["fps_onchip_small"] = (b_ms, b_by)
+            results["fps_cluster"] = (res[0], cluster_ms, res[2])
+            bounds["fps_cluster"] = (b_ms, b_by)
     del big, vote_like
 
     bq_shapes = eval_shapes(xyz, centers)
@@ -607,28 +650,41 @@ def main() -> int:
             bounds["ball_query"] = (b_ms, b_by)
     seeds = centers[:, :SEEDS].contiguous()
 
-    # side-grid queries: 96 face points in each of 256 boxes around seeds
+    # three-NN: side- and box-grid queries (96 face and 64 box points in
+    # each of 256 boxes around seeds) against the seeds; the FP modules'
+    # seeds against a prefix of the SA centers
     box_c = seeds[:, :256]
-    grid = (box_c[:, :, None, :] + torch.rand(
-        (B, 256, 96, 3), generator=torch.Generator(dev).manual_seed(2),
-        device=dev) - 0.5).reshape(B, SIDE_GRID["m"], 3).contiguous()
-    results["three_nn"] = kernel_phase(
-        f"three_nn side grid B={B} M={SIDE_GRID['m']} N={SIDE_GRID['n']}",
-        lambda: three_nn_cuda(grid, seeds), lambda: three_nn_ref(grid, seeds))
-    bounds["three_nn"] = three_nn_bound(B, SIDE_GRID["m"], SIDE_GRID["n"])
-    # the one PyTorch call that computes the same function (matmul form
-    # of the distance, so it may order near-ties otherwise); a yardstick
-    # only, the port never calls it
-    library["three_nn"] = time_ms(
-        lambda: torch.topk(torch.cdist(grid, seeds), 3, largest=False), 5)
-    print(f"[kernel] three_nn side grid: torch.topk(torch.cdist) "
-          f"{library['three_nn']:.4f} ms")
-    fp_src = centers[:, :FP1["n"]].contiguous()
-    kernel_phase(
-        f"three_nn FP1 B={B} M={FP1['m']} N={FP1['n']}",
-        lambda: three_nn_cuda(seeds, fp_src),
-        lambda: three_nn_ref(seeds, fp_src))
-    del xyz, centers, seeds, bq_shapes, grid, fp_src
+    k4_ms = {}
+    for what, m, n in K4_SHAPES:
+        if what.endswith("grid"):
+            per_box = m // 256
+            q = (box_c[:, :, None, :] + torch.rand(
+                (B, 256, per_box, 3),
+                generator=torch.Generator(dev).manual_seed(per_box),
+                device=dev) - 0.5).reshape(B, m, 3).contiguous()
+        else:
+            q = centers[:, :m].contiguous()
+        src = seeds if n == SEEDS else centers[:, :n].contiguous()
+        tag = f"{what} B={B} M={m} N={n}"
+        res = kernel_phase(f"three_nn {tag}", lambda: three_nn_cuda(q, src),
+                           lambda: three_nn_ref(q, src))
+        # the one PyTorch call that computes the same function (matmul form
+        # of the distance, so it may order near-ties otherwise); a
+        # yardstick only, the port never calls it
+        lib_ms = time_ms(
+            lambda: torch.topk(torch.cdist(q, src), 3, largest=False), 5)
+        b_ms, b_by = three_nn_bound(B, m, n)
+        k4_ms[tag] = dict(ms=res[1], plain_ms=res[2], bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms,
+                          plan=three_nn_plan(B, m))
+        print(f"[kernel] three_nn {tag}: {res[1]:.4f} ms (plan "
+              f"{k4_ms[tag]['plan']}), bound {b_ms:.4f} ms ({b_by}), "
+              f"torch.topk(torch.cdist) {lib_ms:.4f} ms")
+        if what == "side grid":
+            results["three_nn"] = res
+            bounds["three_nn"] = (b_ms, b_by)
+            library["three_nn"] = lib_ms
+    del xyz, centers, seeds, bq_shapes, q, src
 
     # ---- 3b. the FPS lab -----------------------------------------------
     lab_launches, lab_entries = fps_lab_phase()
@@ -677,8 +733,9 @@ def main() -> int:
         if launches["eval"][name] <= 0:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  "eval path")
-    if launches["eval"]["fps"] != 0:
-        raise AssertionError("fps.cu was launched on the eval path")
+    for name in OFF_PATH:
+        if launches["eval"][name] != 0:
+            raise AssertionError(f"{name} was launched on the eval path")
     ms = float(np.median(times))
     print(f"[slice] eval forward B={B} x {N_POINTS} x 4: median {ms:.3f} ms "
           f"per batch over {len(times)} runs ({times}), "
@@ -748,10 +805,13 @@ def main() -> int:
     launches["train"] = _build.launch_counts()
     # ----- end of the training path
     print(f"[train] launches during the training path: {launches['train']}")
-    for name in ("fps_cluster", "ball_query", "three_nn"):
+    for name in TRAIN_KERNELS:
         if launches["train"][name] <= 0:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  "training path")
+    for name in OFF_PATH:
+        if launches["train"][name] != 0:
+            raise AssertionError(f"{name} was launched on the training path")
 
     # ---- 6. one training step, card vs CPU ------------------------------
     gpu_vs_cpu_training_step(dev)
@@ -759,6 +819,8 @@ def main() -> int:
     sources = {
         "fps_onchip": ("nesie_tpu_torch/csrc/fps_onchip.cu",
                        "nesie_tpu/ops/pallas_fps.py:73"),
+        "fps_onchip_small": ("nesie_tpu_torch/csrc/fps_onchip.cu",
+                             "nesie_tpu/ops/pallas_fps.py:25"),
         "fps": ("nesie_tpu_torch/csrc/fps.cu",
                 "nesie_tpu/ops/pallas_fps.py:73"),
         "fps_cluster": ("nesie_tpu_torch/csrc/fps_cluster.cu",
@@ -781,8 +843,20 @@ def main() -> int:
             entry["role"] = ("the FPS lab's v0 baseline and a second "
                              "reference for fps_onchip; off the eval and "
                              "training paths")
+        if name == "fps_cluster":
+            entry["role"] = ("the first port of the single-row kernel, a "
+                             "second reference for fps_onchip at B <= 16; "
+                             "off the eval and training paths")
+        if name == "fps_onchip_small":
+            entry["role"] = "fps_onchip.cu at B <= 16 (K2's regime)"
+        if name in ("fps_onchip_small", "fps_cluster"):
+            entry["by_shape"] = {
+                tag: r["ms" if name == "fps_onchip_small" else
+                       "fps_cluster_ms"] for tag, r in k2_ms.items()}
         if name == "ball_query":
             entry["by_shape"] = bq_ms
+        if name == "three_nn":
+            entry["by_shape"] = k4_ms
         kernels.append(entry)
     for entry in lab_entries:
         by_path = {path: n["fps_variant"] for path, n in launches.items()}

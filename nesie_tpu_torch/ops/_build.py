@@ -36,15 +36,20 @@ _SIGNATURES = {
     "nesie_fps": [_P, _I, _I, _I, _P, _P, _P],
     "nesie_fps_cluster": [_P, _I, _I, _I, _I, _P, _P],
     "nesie_fps_cluster_plan": [_I, _I, _I, _P],
-    "nesie_fps_onchip": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "nesie_fps_onchip_plan": [_I, _I, _I, _I, _P],
+    "nesie_fps_onchip": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "nesie_fps_onchip_plan": [_I, _I, _I, _I, _I, _I, _P],
+    "nesie_fps_onchip_timed": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "nesie_ball_query": [_P, _P, _I, _I, _I, _I, _F, _F, _P, _P],
-    "nesie_three_nn": [_P, _P, _I, _I, _I, _P, _P],
+    "nesie_three_nn": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "nesie_three_nn_plan": [_I, _I, _I, _P],
     "nesie_fps_variant": [_I, _P, _P, _I, _I, _I, _P, _P],
 }
 
-KERNELS = ("fps", "fps_cluster", "fps_onchip", "ball_query", "three_nn",
-           "fps_variant")
+# fps_onchip counts the batches of more than 16 rows, fps_onchip_small
+# the others (ops.fps.fps_launch_name), fps_onchip_timed the
+# instrumented kernel's launches
+KERNELS = ("fps", "fps_cluster", "fps_onchip", "fps_onchip_small",
+           "fps_onchip_timed", "ball_query", "three_nn", "fps_variant")
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lib = None

@@ -5,29 +5,20 @@ on the device of their input: a CPU tensor takes the plain PyTorch version,
 a CUDA tensor the hand-written kernel (which raises if it cannot build or
 launch). There is no switch and no fallback between the two.
 
-FPS on a CUDA tensor picks its kernel by the batch alone
-(``fps_kernel_for``): B <= 16 rows (a ``Detector`` request, the semi
-step's B=12) go to ``fps_cluster.cu``, one thread-block cluster per row;
-more rows (the B=32 eval forward) go to ``fps_onchip.cu``, each row held
-on chip across a cluster, with a plan made for the whole batch.
+FPS on a CUDA tensor runs ``fps_onchip.cu``, each row held on chip on
+one CTA or across a thread-block cluster, with a plan made for the whole
+batch: B <= 16 rows (a ``Detector`` request, the training steps) take the
+mailbox exchange (or one CTA for a short row), and so do more rows (the
+B=32 eval forward). The batch names its launch count
+(``ops.fps.fps_launch_name``).
 """
 from __future__ import annotations
 
 import torch
 
 from .ball_query import ball_query_cuda, ball_query_ref
-from .fps import fps_cluster_cuda, fps_onchip_cuda, fps_ref
+from .fps import fps_onchip_cuda, fps_ref
 from .three_nn import three_nn_cuda, three_nn_ref
-
-
-# the most rows that FPS sends to fps_cluster.cu
-FPS_CLUSTER_MAX_ROWS = 16
-
-
-def fps_kernel_for(batch: int) -> str:
-    """The FPS kernel a CUDA batch of ``batch`` rows takes: its launch
-    count's name in ``_build.KERNELS``."""
-    return "fps_cluster" if batch <= FPS_CLUSTER_MAX_ROWS else "fps_onchip"
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -47,8 +38,6 @@ def furthest_point_sample(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
     xyz = _coords(xyz)
     if _on_cpu(xyz):
         return fps_ref(xyz, num_samples)
-    if fps_kernel_for(xyz.shape[0]) == "fps_cluster":
-        return fps_cluster_cuda(xyz, num_samples)
     return fps_onchip_cuda(xyz, num_samples)
 
 

@@ -7,6 +7,8 @@ Counterpart of ``nesie_tpu/ops/pallas_three_nn.py``. The kernel is
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -41,8 +43,25 @@ def three_nn_ref(query: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
     return torch.cat(out, dim=1)
 
 
-def three_nn_cuda(query: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/three_nn.cu``: one thread per query."""
+def three_nn_plan(batch: int, m: int, queries_per_thread: int = 0) -> dict:
+    """The launch plan ``three_nn_cuda`` takes for (batch, m) queries:
+    queries a thread (1, 2 or 4; 0 lets the plan choose) and threads a
+    block. Raises on a request the kernel does not take."""
+    plan = (ctypes.c_int * 2)()
+    err = _build.library().nesie_three_nn_plan(
+        batch, m, queries_per_thread, ctypes.addressof(plan))
+    if err != 0:
+        raise RuntimeError(f"three_nn: no launch plan for B={batch}, M={m}, "
+                           f"queries_per_thread={queries_per_thread} "
+                           f"(cudaError {err})")
+    return dict(queries_per_thread=plan[0], threads=plan[1])
+
+
+def three_nn_cuda(query: torch.Tensor, source: torch.Tensor,
+                  queries_per_thread: int = 0) -> torch.Tensor:
+    """Launch ``csrc/three_nn.cu``: a block serves threads x Q queries of
+    one row over the row staged in shared memory. ``queries_per_thread``
+    asks for Q (see ``three_nn_plan``); 0 lets the plan choose."""
     _build.check_cuda_input("query", query)
     _build.check_cuda_input("source", source)
     B, M, _ = query.shape
@@ -57,5 +76,6 @@ def three_nn_cuda(query: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
     if B * M == 0:
         return idx
     _build.launch("three_nn", "nesie_three_nn", query.data_ptr(),
-                  source.data_ptr(), B, M, N, idx.data_ptr())
+                  source.data_ptr(), B, M, N, queries_per_thread,
+                  idx.data_ptr())
     return idx

@@ -119,8 +119,9 @@ def test_fps_dispatch_by_batch(cuda):
     furthest_point_sample(xyz[:16], 64)
     furthest_point_sample(xyz, 64)
     after = _build.launch_counts()
-    assert after["fps_cluster"] == counts["fps_cluster"] + 1
+    assert after["fps_onchip_small"] == counts["fps_onchip_small"] + 1
     assert after["fps_onchip"] == counts["fps_onchip"] + 1
+    assert after["fps_cluster"] == counts["fps_cluster"]
     assert after["fps"] == counts["fps"]
 
 
@@ -314,15 +315,69 @@ def test_three_nn_kernel_matches_plain(cuda, case):
     assert torch.equal(got, three_nn_ref(q, s))
 
 
+def _three_nn_case(case):
+    """(query, source) of one three-NN edge case."""
+    q, s = _uniform((2, 777, 3), seed=50), _uniform((2, 1021, 3), seed=51)
+    if case == "long_row":  # past the resident row: three tiles
+        s = _uniform((2, 5003, 3), seed=52)
+    elif case == "duplicate_sources":  # equal distances: lower index first
+        s[:, 500:1000] = s[:, :500]
+        q[:, :300] = s[:, 600:900]
+    elif case == "equidistant":  # integer lattice, queries at cell centres
+        g = torch.arange(10.0)
+        s = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
+        s = s.reshape(1, -1, 3).expand(2, -1, -1).contiguous()
+        q = torch.floor(q * 9.0) + 0.5
+    elif case == "one_query":
+        q = q[:, :1].contiguous()
+    return q, s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qpt", [1, 2, 4])
+@pytest.mark.parametrize("case", ["ragged_row", "long_row",
+                                  "duplicate_sources", "equidistant",
+                                  "one_query"])
+def test_three_nn_queries_per_thread(cuda, case, qpt):
+    """Q = 1, 2, 4 queries a thread; N = 1021 (no multiple of 4: NaN
+    padding), 5003 (tiles past the resident row), duplicate and
+    equidistant sources (ties to the lower index), M = 1."""
+    from nesie_tpu_torch.ops.three_nn import three_nn_plan
+
+    q, s = (t.to(cuda) for t in _three_nn_case(case))
+    assert three_nn_plan(2, q.shape[1], qpt)["queries_per_thread"] == qpt
+    before = _build.launch_counts()["three_nn"]
+    got = three_nn_cuda(q, s, qpt)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["three_nn"] == before + 1
+    assert torch.equal(got, three_nn_ref(q, s))
+
+
+@pytest.mark.gpu
+def test_three_nn_plan(cuda):
+    """The side grid takes 4 queries a thread, a request's FP queries 1;
+    a request the kernel does not take raises."""
+    from nesie_tpu_torch.ops.three_nn import three_nn_plan
+
+    assert three_nn_plan(32, 24576)["queries_per_thread"] == 4
+    assert three_nn_plan(1, 1024)["queries_per_thread"] == 1
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        three_nn_plan(1, 1024, 3)
+
+
 @pytest.mark.parametrize("kernel", ["fps", "fps_cluster", "fps_onchip",
-                                    "ball_query", "three_nn"])
+                                    "fps_onchip_timed", "ball_query",
+                                    "three_nn"])
 def test_wrappers_refuse_cpu_tensors(kernel):
     """A kernel wrapper never runs the plain version in its place."""
+    from nesie_tpu_torch.ops.fps import fps_onchip_timed
+
     x = _uniform((1, 64, 3), seed=5)
     call = {
         "fps": lambda: fps_cuda(x, 8),
         "fps_cluster": lambda: fps_cluster_cuda(x, 8),
         "fps_onchip": lambda: fps_onchip_cuda(x, 8),
+        "fps_onchip_timed": lambda: fps_onchip_timed(x, 8),
         "ball_query": lambda: ball_query_cuda(x, x, 0.2, 4),
         "three_nn": lambda: three_nn_cuda(x, x),
     }[kernel]
@@ -344,9 +399,121 @@ def test_wrappers_refuse_bad_layouts(cuda):
 
 @pytest.mark.gpu
 def test_fps_onchip_plan_raises_without_a_plan(cuda):
-    """A cluster size the kernel does not take raises; nothing falls back."""
+    """A cluster size the kernel does not take, the local exchange across
+    a cluster, or a row the mailbox cannot hold on chip raises; nothing
+    falls back."""
     with pytest.raises(RuntimeError, match="no launch plan"):
-        fps_onchip_plan(32, 40000, 9)
+        fps_onchip_plan(32, 40000, 17)
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        fps_onchip_plan(2, 40000, 2, 0, "local")
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        fps_onchip_plan(32, 40000, 0, 0, "local")  # one CTA cannot hold it
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        fps_onchip_plan(1, 2000000, 16, 0, "mailbox")
+    with pytest.raises(ValueError, match="exchange"):
+        fps_onchip_plan(1, 4000, 0, 0, "ring")
     with pytest.raises(RuntimeError, match="no launch plan"):
         fps_onchip_cuda(_uniform((17, 64, 3), seed=8).to(cuda), 8,
-                        cluster_size=9)
+                        cluster_size=17)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exchange", ["mailbox", "mailbox_cta"])
+@pytest.mark.parametrize("cluster", list(range(1, 17)))
+def test_fps_mailbox_cluster_sizes(cuda, cluster, exchange):
+    """Every cluster size at a ragged N (5003: a multiple of no cluster
+    size, of no thread count and of 4; at 16 the last slices are short)."""
+    xyz = _uniform((3, 5003, 3), seed=30).to(cuda)
+    plan = fps_onchip_plan(3, 5003, cluster, 0, exchange)
+    assert plan["cluster"] == cluster and plan["exchange"] == exchange
+    before = _build.launch_counts()["fps_onchip_small"]
+    got = fps_onchip_cuda(xyz, 700, cluster, 0, exchange)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fps_onchip_small"] == before + 1
+    assert torch.equal(got, _fps_oracle(xyz, 700))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,m,exchanges", [
+    (1, 40000, 2048, ("mailbox", "mailbox_cta")),   # a Detector request
+    (12, 40000, 2048, ("mailbox", "mailbox_cta")),  # semi-step SA1
+    (12, 1024, 256, ("local",)),  # vote-mode aggregation: one CTA a row
+    (2, 200000, 2048, ("mailbox", "mailbox_cta")),  # 200000-point rows
+])
+def test_fps_small_batches_match_plain(cuda, b, n, m, exchanges):
+    """The plan's own choice at the B <= 16 shapes of the paths: rows on
+    chip (the 200000-point rows at C=16), the exchange a mailbox, or one
+    CTA for a short row."""
+    xyz = _uniform((b, n, 3), seed=n + b, scale=5.0).to(cuda)
+    plan = fps_onchip_plan(b, n)
+    assert plan["exchange"] in exchanges and plan["points_per_thread"] > 0
+    if exchanges == ("local",):
+        assert plan["cluster"] == 1
+    got = fps_onchip_cuda(xyz, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_ref(xyz, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,cluster,exchange", [
+    (1, 0, "auto"), (12, 0, "auto"), (16, 0, "auto"), (12, 16, "mailbox"),
+    (16, 3, "mailbox_cta"), (1, 1, "local")])
+def test_fps_small_batches_lattice_ties(cuda, b, cluster, exchange):
+    g = torch.arange(20.0)
+    xyz = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
+    xyz = xyz.reshape(1, -1, 3).expand(b, -1, -1).contiguous().to(cuda)
+    got = fps_onchip_cuda(xyz, 500, cluster, 0, exchange)
+    assert torch.equal(got, _fps_oracle(xyz[:1], 500).expand(b, -1))
+
+
+@pytest.mark.gpu
+def test_fps_exchanges_agree_at_b32(cuda):
+    """The barrier and both mailbox exchanges give the same indices at the
+    eval forward's 32 x 40000 -> 2048 (and fps_ref's)."""
+    xyz = _uniform((32, 40000, 3), seed=40032).to(cuda)
+    got = {x: fps_onchip_cuda(xyz, 2048, 7, 0, x)
+           for x in ("barrier", "mailbox", "mailbox_cta")}
+    assert torch.equal(got["barrier"], got["mailbox"])
+    assert torch.equal(got["barrier"], got["mailbox_cta"])
+    assert torch.equal(got["barrier"], _fps_oracle(xyz, 2048))
+
+
+@pytest.mark.gpu
+def test_fps_onchip_timed_matches_plain(cuda):
+    """The instrumented kernel gives the same indices and stamps every
+    phase of its first steps in order."""
+    from nesie_tpu_torch.ops.fps import TIMED_STEPS, fps_onchip_timed
+
+    xyz = _uniform((2, 40000, 3), seed=41).to(cuda)
+    for exchange in ("barrier", "mailbox", "mailbox_cta"):
+        got, stamps = fps_onchip_timed(xyz, 600, 8, 0, exchange)
+        assert torch.equal(got, _fps_oracle(xyz, 600))
+        s = stamps[:599].cpu()
+        assert (s >= 0).all() and (s[:, 1:] >= s[:, :-1]).all()
+        assert (stamps[599:TIMED_STEPS] == -1).all()
+
+
+def test_fps_exchange_names():
+    """An exchange is named; an unknown name raises before any build."""
+    from nesie_tpu_torch.ops.fps import EXCHANGES, _exchange_id
+
+    assert [_exchange_id(x) for x in EXCHANGES] == list(range(5))
+    with pytest.raises(ValueError, match="exchange"):
+        _exchange_id("ring")
+
+
+def test_fps_step_split_phases():
+    """The step split's medians: each phase from its stamps, the step
+    from one start to the next, a phase a step did not stamp left out."""
+    from nesie_tpu_torch.tools.fps_step_split import SKIP, split
+
+    steps = SKIP + 5
+    base = torch.arange(steps, dtype=torch.int64)[:, None] * 100
+    stamps = base + torch.tensor([0, 10, 30, 35, 80, 90])
+    got = split(stamps, steps)
+    assert got == dict(point_loop=10.0, warp_reduce=20.0, push=5.0,
+                       barrier_or_wait=45.0, cross_reduce=10.0, step=100.0)
+    stamps[:, 3:5] = -1  # one warp: no push, no wait
+    got = split(stamps, steps)
+    assert got["push"] is None and got["barrier_or_wait"] is None
+    assert got["point_loop"] == 10.0

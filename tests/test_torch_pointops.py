@@ -159,18 +159,22 @@ def test_cpu_tensors_take_plain_versions():
     tpo.three_nn(centers, xyz)
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
     assert set(_build.KERNELS) == {"fps", "fps_cluster", "fps_onchip",
+                                   "fps_onchip_small", "fps_onchip_timed",
                                    "ball_query", "three_nn", "fps_variant"}
     assert _build._lib is None
 
 
-@pytest.mark.parametrize("batch,kernel", [(1, "fps_cluster"),
-                                          (16, "fps_cluster"),
+@pytest.mark.parametrize("batch,kernel", [(1, "fps_onchip_small"),
+                                          (16, "fps_onchip_small"),
                                           (17, "fps_onchip"),
                                           (32, "fps_onchip")])
 def test_fps_kernel_for(batch, kernel):
-    """The dispatch rule for CUDA tensors: requests and training steps
-    (B <= 16) take fps_cluster, the B=32 eval forward fps_onchip."""
-    assert tpo.fps_kernel_for(batch) == kernel
+    """The launch count of FPS on CUDA tensors: requests and training
+    steps (B <= 16) count as fps_onchip_small, the B=32 eval forward as
+    fps_onchip; fps_cluster.cu is off both paths."""
+    from nesie_tpu_torch.ops.fps import fps_launch_name
+
+    assert fps_launch_name(batch) == kernel
     assert kernel in _build.KERNELS
 
 

@@ -165,6 +165,8 @@ def test_port_never_imports_jax():
             "nesie_tpu_torch.train.semi, nesie_tpu_torch.train.step, "
             "nesie_tpu_torch.data.synthetic, "
             "nesie_tpu_torch.tools.fps_cluster_sweep, "
+            "nesie_tpu_torch.tools.fps_onchip_sweep, "
+            "nesie_tpu_torch.tools.fps_step_split, "
             "nesie_tpu_torch.tools.profile_train_step, "
             "nesie_tpu_torch.ops.fps_variants, "
             "nesie_tpu_torch.tools.fps_lab, "
