@@ -49,7 +49,22 @@ file; fails without them. In order:
    pseudo-label thresholds) on the card and on the CPU from the same
    weights and inputs: pseudo-boxes and a nonzero unsupervised IoU loss
    on both, identical FPS and ball-query indices, loss terms within
-   atol 1e-4 + rtol 1e-3, gradient cosine above 0.999.
+   atol 1e-4 + rtol 1e-3, gradient cosine above 0.999;
+7. [runner], counts set to 0 before and read after each of its two paths:
+   ``write_synthetic_scannet`` writes 16 training and 32 val scenes under
+   ``build/``; ``tools/train.py`` (in-process) pretrains the flagship
+   (``nesie-votenet-scannet-pretrain-050``, 2 epochs of 2 steps at B=4 x
+   40000), trains it semi-supervised from that checkpoint
+   (``...-train-050``, 2 epochs of 2 steps at 4 + 8 scenes) and resumes
+   that run for a third epoch (path ``runner``); ``tools/test.py``
+   evaluates the student and the teacher on the 32 val scenes in one
+   batch of 32, and ``init_detector(config name, checkpoint dir)`` serves
+   one request (path ``runner_eval``). Checks: finite values on every
+   logged step, a checkpoint that reloads bit for bit (parameters,
+   buffers, optimizer state, step, ``UlbState``), the resumed run's first
+   step, mAP and mAR at 0.25 in [0, 1]. Prints the runner's step times
+   beside the bare steps of phase 5, the host time of one
+   ``semi_batch`` and ``evaluate``'s scenes a second.
 
 Prints ``{"kernels": [...]}``, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -121,6 +136,15 @@ OFF_PATH = ("fps", "fps_cluster")
 ONCHIP_RAGGED = (17, N_POINTS + 1, 2048)
 SEMI_B = 12  # the semi step's batch, for the SA1 ball query
 LAB_REPS = 5
+# [runner]: the flagship through the CLIs on a written synthetic dataset
+# (split 050: 8 of the 16 training scenes labeled; B=4 labeled, 4 + 8 in
+# the semi step, 2 steps an epoch), evaluated on 32 val scenes at once
+RUNNER = dict(n_train=16, n_val=32, eval_batch=32, data_seed=0,
+              pretrain="nesie-votenet-scannet-pretrain-050",
+              semi="nesie-votenet-scannet-train-050")
+RUNNER_OVER = ["optim.max_epochs=2", "data.repeat=1", "log_interval=1"]
+RUNNER_EVAL_KERNELS = ("fps_onchip",)
+SEMI_BATCH_REPS = 3
 # The rate of fp32 operations that are not FMAs: 132 SMs x 128 lanes x
 # the 1.98 GHz boost clock (the data sheet's 67 TFLOP/s counts an FMA as
 # two). sq_dist.cuh forbids contraction, so none of the point kernels can
@@ -486,6 +510,230 @@ def gpu_vs_cpu_training_step(dev) -> None:
           f"{cos:.8f}")
 
 
+def metric_rows(work: Path) -> list[dict]:
+    """The logged steps of a run's ``metrics.jsonl`` (every line with a
+    loss), in order."""
+    rows = [json.loads(line) for line in
+            (work / "metrics.jsonl").read_text().splitlines()]
+    return [r for r in rows if "loss" in r]
+
+
+def step_seconds(rows: list[dict]) -> list[float]:
+    """Wall seconds between consecutive logged steps: with
+    ``log_interval=1`` each row is written after its step's values reached
+    the host, so a difference is one step with its batch wait."""
+    return [b["time"] - a["time"] for a, b in zip(rows, rows[1:])]
+
+
+def check_rows(rows: list[dict], what: str) -> None:
+    for r in rows:
+        bad = {k: v for k, v in r.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"{what} step {r['step']}: non-finite {bad}")
+
+
+def state_tensors(state) -> dict:
+    out = {f"student.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"teacher.{k}": v
+                for k, v in state.teacher.state_dict().items()})
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"optimizer.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def runner_phase(dev, bare: dict) -> dict:
+    """The flagship through the user's entry points: the train and test
+    CLIs, ``evaluate`` and ``init_detector``. Returns the launch counts of
+    its training and eval paths and the numbers it printed."""
+    import shutil
+
+    import torch
+
+    from nesie_tpu_torch.apis import init_detector
+    from nesie_tpu_torch.config import apply_overrides, get_config
+    from nesie_tpu_torch.data.dataset import ScanNetScenes, SimiScanNetScenes
+    from nesie_tpu_torch.data.synthetic import write_synthetic_scannet
+    from nesie_tpu_torch.ops import _build
+    from nesie_tpu_torch.tools import test as test_cli
+    from nesie_tpu_torch.tools import train as train_cli
+    from nesie_tpu_torch.train import runner
+    from nesie_tpu_torch.train.semi import UlbState
+
+    base = ROOT / "build" / "runner_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = write_synthetic_scannet(base / "data", RUNNER["n_train"],
+                                   RUNNER["n_val"], seed=RUNNER["data_seed"])
+    print(f"[runner] dataset: {RUNNER['n_train']} train + {RUNNER['n_val']} "
+          f"val scenes written in {time.perf_counter() - t0:.2f} s")
+    work = base / "work"
+    common = ["--data-root", str(data), "--work-dir", str(work),
+              "--device", str(dev)]
+    pre_work, semi_work = work / RUNNER["pretrain"], work / RUNNER["semi"]
+
+    # ----- the runner's training path
+    _build.reset_launch_counts()
+    train_cli.main([RUNNER["pretrain"], *common,
+                    "--cfg-options", *RUNNER_OVER])
+    semi_state = train_cli.main([
+        RUNNER["semi"], *common, "--load-from",
+        str(pre_work / "checkpoints"), "--cfg-options", *RUNNER_OVER])
+    pre_rows, semi_rows = metric_rows(pre_work), metric_rows(semi_work)
+    cfg = apply_overrides(get_config(RUNNER["semi"]), RUNNER_OVER)
+    ckpt = runner.CheckpointManager(semi_work)
+    saved_step = ckpt.latest_step()
+    semi_ds = SimiScanNetScenes(data, data / cfg.data.train_ann_file,
+                                data / cfg.data.label_list_file,
+                                ratio=cfg.data.unlabeled_ratio)
+    resumed = train_cli.main([
+        RUNNER["semi"], *common, "--resume", "--cfg-options", *RUNNER_OVER,
+        "optim.max_epochs=3"])
+    launches = {"runner": _build.launch_counts()}
+    # ----- end of the runner's training path
+    resume_rows = metric_rows(semi_work)[len(semi_rows):]
+    for rows, what in ((pre_rows, "pretrain"), (semi_rows, "semi"),
+                       (resume_rows, "resumed semi")):
+        check_rows(rows, what)
+    steps_per_epoch = semi_ds.num_labeled * cfg.data.repeat \
+        // cfg.data.samples_per_step
+    if not (len(pre_rows) == len(semi_rows) == 2 * steps_per_epoch
+            and [r["step"] for r in resume_rows] == [5, 6]
+            and resumed.step == 6 and saved_step == 4):
+        raise AssertionError(
+            f"runner steps: pretrain {[r['step'] for r in pre_rows]}, semi "
+            f"{[r['step'] for r in semi_rows]}, resumed "
+            f"{[r['step'] for r in resume_rows]} (want epoch 2's steps 5, "
+            f"6), checkpoint {saved_step}")
+    print(f"[runner] launches during the runner's training path: "
+          f"{launches['runner']}")
+    for name in TRAIN_KERNELS:
+        if launches["runner"][name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the "
+                                 "runner's training path")
+
+    # the checkpoint the semi run wrote reloads bit for bit
+    fresh = runner.init_state(cfg, runner.build_model(cfg), 1, dev)
+    ulb = UlbState.create(semi_ds.num_unlabeled, cfg.model.num_classes,
+                          device=dev)
+    restored, ulb, at = ckpt.restore(fresh, ulb, step=saved_step)
+    # the semi run's state as it left the loop (the resumed run restored
+    # its own copy) against the one read back
+    mem, disk = state_tensors(semi_state), state_tensors(restored)
+    if mem.keys() != disk.keys() or semi_state.step != restored.step:
+        raise AssertionError("checkpoint reload: tensors or step differ")
+    for name, v in mem.items():
+        if v.device != disk[name].device or not torch.equal(v, disk[name]):
+            raise AssertionError(f"checkpoint reload: {name} differs "
+                                 f"({v.device} / {disk[name].device})")
+    # UlbState lives in the loop only: its saved copy survives a restore
+    # and a second save bit for bit
+    again = runner.CheckpointManager(base / "roundtrip")
+    again.save(at, restored, ulb, meta={"mesh_size": 1})
+    first, second = ckpt.load(at), again.load(at)
+    pairs = [(f"{k}.{n}", first[k][n], second[k][n])
+             for k in ("model", "teacher") for n in first[k]]
+    pairs += [(f"ulb_state.{n}", v, second["ulb_state"][n])
+              for n, v in first["ulb_state"].items()]
+    for i, st in first["optimizer"]["state"].items():
+        pairs += [(f"optimizer.{i}.{n}", v,
+                   second["optimizer"]["state"][i][n]) for n, v in st.items()]
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"checkpoint reload: {name} differs")
+    if not (first["step"] == second["step"] == at == 4
+            and first["optimizer"]["param_groups"]
+            == second["optimizer"]["param_groups"]):
+        raise AssertionError("checkpoint reload: step or param groups differ")
+    print(f"[runner] checkpoint of step {at} reloads bit for bit: "
+          f"{len(mem)} tensors of the trained state (student, teacher, "
+          f"optimizer) and its step; {len(pairs)} tensors with UlbState's "
+          "and the param groups through restore and a second save")
+
+    # the host time of one semi batch, outside the loop
+    rng = np.random.default_rng(0)
+    host = []
+    for _ in range(SEMI_BATCH_REPS):
+        t0 = time.perf_counter()
+        semi_ds.semi_batch(list(range(cfg.data.samples_per_step)), rng,
+                           strong_cfg=runner.strong_aug_config(cfg),
+                           num_points=cfg.data.num_points)
+        host.append((time.perf_counter() - t0) * 1e3)
+
+    # ----- the runner's eval path
+    del fresh, restored, resumed, semi_state, mem, disk
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    test_args = [RUNNER["semi"], str(semi_work / "checkpoints"),
+                 "--data-root", str(data), "--device", str(dev),
+                 "--batch-size", str(RUNNER["eval_batch"]),
+                 "--cfg-options", *RUNNER_OVER]
+    results = {"student": test_cli.main(test_args),
+               "teacher": test_cli.main(test_args + ["--teacher"])}
+    model = runner.build_model(cfg)
+    model.load_state_dict(ckpt.load()["model"])
+    model = model.to(dev)
+    val = ScanNetScenes(data, data / cfg.data.val_ann_file)
+    t0 = time.perf_counter()
+    test_cli.evaluate(cfg, model, val, RUNNER["eval_batch"], 9, dev)
+    eval_s = time.perf_counter() - t0
+    detector = init_detector(RUNNER["semi"], semi_work / "checkpoints",
+                             device=dev, cfg_options=RUNNER_OVER)
+    cloud = np.fromfile(str(val.scenes[0].pts_path), np.float32)
+    t0 = time.perf_counter()
+    served = detector(cloud.reshape(-1, 6)[:, :3])
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches["runner_eval"] = _build.launch_counts()
+    # ----- end of the runner's eval path
+    print(f"[runner] launches during the runner's eval path: "
+          f"{launches['runner_eval']}")
+    for name in RUNNER_EVAL_KERNELS:
+        if launches["runner_eval"][name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the "
+                                 "runner's eval path")
+    for path in ("runner", "runner_eval"):
+        for name in OFF_PATH:
+            if launches[path][name] != 0:
+                raise AssertionError(f"{name} was launched on path {path}")
+    for who, res in results.items():
+        for k in ("mAP_0.25", "mAR_0.25"):
+            if not 0.0 <= res.get(k, -1.0) <= 1.0:
+                raise AssertionError(f"{who} {k} = {res.get(k)}")
+    if not (np.isfinite(served["boxes_3d"]).all()
+            and np.isfinite(served["scores_3d"]).all()):
+        raise AssertionError("runner checkpoint request: non-finite output")
+
+    pre_s, semi_s = step_seconds(pre_rows), step_seconds(semi_rows)
+    out = dict(
+        pretrain_ms=float(np.median(pre_s)) * 1e3,
+        semi_ms=float(np.median(semi_s)) * 1e3,
+        semi_batch_host_ms=float(np.median(host)),
+        eval_scenes_per_s=len(val) / eval_s)
+    print(f"[runner] step wall times after the first (ms): pretrain B=4 "
+          f"{[round(x * 1e3, 3) for x in pre_s]} median "
+          f"{out['pretrain_ms']:.3f}; semi 4 + 8 "
+          f"{[round(x * 1e3, 3) for x in semi_s]} median "
+          f"{out['semi_ms']:.3f}; bare steps of the training path: semi "
+          f"{bare['semi_ms']:.3f}, supervised B={SUP_B} {bare['sup_ms']:.3f}; "
+          f"runner semi / bare semi {out['semi_ms'] / bare['semi_ms']:.4f}")
+    print(f"[runner] host time of one semi_batch (4 + 8 scenes x "
+          f"{cfg.data.num_points}, two views): median "
+          f"{out['semi_batch_host_ms']:.3f} ms of {host}")
+    print(f"[runner] evaluate: {len(val)} val scenes in one batch of "
+          f"{RUNNER['eval_batch']}: {eval_s:.3f} s, "
+          f"{out['eval_scenes_per_s']:.2f} scenes/s; student "
+          f"mAP_0.25 {results['student']['mAP_0.25']:.4f} mAR_0.25 "
+          f"{results['student']['mAR_0.25']:.4f}, teacher mAP_0.25 "
+          f"{results['teacher']['mAP_0.25']:.4f} mAR_0.25 "
+          f"{results['teacher']['mAR_0.25']:.4f}; request from the "
+          f"checkpoint {serve_ms:.3f} ms, {len(served['boxes_3d'])} boxes")
+    print(f"[runner] losses: pretrain "
+          f"{[round(r['loss'], 4) for r in pre_rows]}, semi "
+          f"{[round(r['loss'], 4) for r in semi_rows]}, resumed "
+          f"{[round(r['loss'], 4) for r in resume_rows]}; num_pseudo "
+          f"{[r['num_pseudo'] for r in semi_rows + resume_rows]}")
+    return dict(launches=launches, **out)
+
+
 def main() -> int:
     if not (ROOT / "nesie_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the nesie_tpu_torch sources are not beside "
@@ -801,7 +1049,7 @@ def main() -> int:
     del model, cpu_model, detector, points, out, gpu, cpu
     torch.cuda.empty_cache()
     _build.reset_launch_counts()
-    training_path(dev)
+    bare = training_path(dev)
     launches["train"] = _build.launch_counts()
     # ----- end of the training path
     print(f"[train] launches during the training path: {launches['train']}")
@@ -815,6 +1063,10 @@ def main() -> int:
 
     # ---- 6. one training step, card vs CPU ------------------------------
     gpu_vs_cpu_training_step(dev)
+
+    # ---- 7. the runner and the CLIs -----------------------------------
+    torch.cuda.empty_cache()
+    launches.update(runner_phase(dev, bare)["launches"])
 
     sources = {
         "fps_onchip": ("nesie_tpu_torch/csrc/fps_onchip.cu",

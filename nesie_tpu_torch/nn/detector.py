@@ -69,6 +69,25 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
 
 
 @torch.no_grad()
+def init_weights_flax_(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded weights from flax's default initializers, the distributions
+    the JAX package's ``init_state`` draws from: every Linear weight
+    ``lecun_normal`` (a standard normal truncated at +-2, scaled to
+    variance 1/fan_in), biases 0; BN at weight 1, bias 0, mean 0, var 1."""
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            # 0.8796...: the standard deviation of a standard normal
+            # truncated at +-2 (jax.nn.initializers.variance_scaling)
+            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm1d):
+            m.reset_parameters()
+
+
+@torch.no_grad()
 def randomize_bn_(model: nn.Module, generator: torch.Generator) -> None:
     """BN affine and running stats drawn away from 1/0, so that a
     comparison exercises every BN tensor."""
