@@ -64,7 +64,24 @@ file; fails without them. In order:
    buffers, optimizer state, step, ``UlbState``), the resumed run's first
    step, mAP and mAR at 0.25 in [0, 1]. Prints the runner's step times
    beside the bare steps of phase 5, the host time of one
-   ``semi_batch`` and ``evaluate``'s scenes a second.
+   ``semi_batch`` and ``evaluate``'s scenes a second;
+8. [saqe], the SAQE family (``saqe-votenet-scannet-train-050``'s model:
+   18 classes, reg_max 32, 256 proposals, jitter 0.5 + 0.2; seeded
+   flax-style weights): three-NN at the quality module's 162-point grid
+   (32 x 41472 and 12 x 82944 queries against 1024 seeds), identical to
+   ``three_nn_ref``, beside its bound and ``torch.topk(torch.cdist)``;
+   then, counts set to 0 before and read after each of four paths: the
+   B=32 eval forward (median of 5, beside this run's Nesie forward) and
+   the SUN RGB-D test config's, three requests through
+   ``init_detector("saqe-votenet-scannet-test")`` (path ``saqe_eval``:
+   the ball query at 5 launches a forward, three-NN at 3); the bare SAQE
+   semi step (4 + 8 scenes) and supervised step (B=8) with every SAQE
+   loss term finite, peak memory, student, BN and teacher moved (path
+   ``saqe_train``); the train CLI on ``[runner]``'s dataset, SAQE
+   pretrain then semi from it, one epoch each (``saqe_runner``); the
+   test CLI on the student and the teacher at B=32 and one request from
+   the checkpoint (``saqe_runner_eval``). Between them, the eval forward
+   under the profiler (busy, idle share) and one scene against the CPU.
 
 Prints ``{"kernels": [...]}``, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -145,6 +162,30 @@ RUNNER = dict(n_train=16, n_val=32, eval_batch=32, data_seed=0,
 RUNNER_OVER = ["optim.max_epochs=2", "data.repeat=1", "log_interval=1"]
 RUNNER_EVAL_KERNELS = ("fps_onchip",)
 SEMI_BATCH_REPS = 3
+# [saqe]: the flagship SAQE model of the shipped configs (18 classes,
+# reg_max 32, 256 proposals, jitter 0.5 with size bias 0.2), its SUN RGB-D
+# test config, and three-NN at the quality module's grid: 162 points a
+# box, 256 boxes a row at eval (B=32), 512 (main + jittered) in the semi
+# student's 12 rows
+SAQE_CONFIG = "saqe-votenet-scannet-train-050"
+SAQE_PRETRAIN = "saqe-votenet-scannet-pretrain-050"
+SAQE_SERVE = "saqe-votenet-scannet-test"
+SAQE_SUN = "saqe-votenet-sunrgbd-test"
+SAQE_GRID = 162
+SAQE_K4_SHAPES = (("SAQE eval grid", B, 256 * SAQE_GRID, SEEDS),
+                  ("SAQE semi-student grid", SEMI_B, 512 * SAQE_GRID, SEEDS))
+SAQE_PRETRAIN_TERMS = ("vote_loss", "objectness_loss", "center_loss",
+                       "surface_loss", "angle_loss", "angle_pred_loss",
+                       "semantic_loss", "iou_loss", "iou_pred_loss",
+                       "side_loss")
+SAQE_SEMI_TERMS = tuple(t for t in SAQE_PRETRAIN_TERMS
+                        if t != "angle_pred_loss") + (
+    "unsup_center_loss", "unsup_semantic_loss", "unsup_iou_loss",
+    "unsup_surface_loss")
+# the kernel launches of one forward of either head: the ball query at
+# SA1-SA4 and the aggregation, three-NN at FP1, FP2 and the quality grid
+# (one grid for SAQE)
+SAQE_BQ_PER_FORWARD, SAQE_3NN_PER_FORWARD = 5, 3
 # The rate of fp32 operations that are not FMAs: 132 SMs x 128 lanes x
 # the 1.98 GHz boost clock (the data sheet's 67 TFLOP/s counts an FMA as
 # two). sq_dist.cuh forbids contraction, so none of the point kernels can
@@ -341,13 +382,20 @@ def check_finite(metrics: dict, model, what: str) -> None:
                                  "finite")
 
 
-def training_path(dev) -> dict:
+def training_path(dev, head: str = "nesie") -> dict:
     """The flagship's semi and supervised steps on the card; every check
-    of the training phase. Returns the numbers it printed."""
+    of the training phase. ``head="saqe"``: the flagship SAQE model
+    (``SAQE_CONFIG``, flax-style seeded weights) with the SAQE losses, and
+    every SAQE loss term checked by name. Returns the numbers it
+    printed."""
     import torch
 
     from nesie_tpu_torch.data.synthetic import semi_batch
-    from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_
+    from nesie_tpu_torch.nn.detector import (
+        VoteNetNesie,
+        init_weights_,
+        init_weights_flax_,
+    )
     from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
     from nesie_tpu_torch.train.state import (
         create_train_state,
@@ -355,19 +403,29 @@ def training_path(dev) -> dict:
     )
     from nesie_tpu_torch.train.step import make_supervised_train_step
 
-    model = VoteNetNesie()  # flagship width and depth
-    init_weights_(model, torch.Generator().manual_seed(3))
+    tag = "[saqe]" if head == "saqe" else "[train]"
+    if head == "saqe":
+        model = saqe_model()
+        init_weights_flax_(model, torch.Generator().manual_seed(3))
+    else:
+        model = VoteNetNesie()  # flagship width and depth
+        init_weights_(model, torch.Generator().manual_seed(3))
     state = create_train_state(model, make_lr_schedule(8e-3, 1000),
                                device=dev)
     rng = np.random.default_rng(7)
     batch = semi_batch(rng, SEMI["n_labeled"], SEMI["n_unlabeled"],
                         N_POINTS, SEMI["max_gt"], SEMI["n_boxes"], dev)
     ulb = [UlbState.create(SEMI["scans"], 18, device=dev)]
-    step = make_semi_train_step(SEMI["n_labeled"], SEMI["scans"])
+    step = make_semi_train_step(SEMI["n_labeled"], SEMI["scans"], head=head)
     gen = torch.Generator(dev).manual_seed(2)
     conv = state.model.backbone.SA_modules[0].mlps[0].layer0
     watched = {"SA1 conv weight": conv.conv.weight,
                "SA1 BN running mean": conv.bn.running_mean}
+    if head == "saqe":
+        fused = state.model.bbox_head.grid_conv.mlps_head[6]
+        watched.update({"fused quality head weight": fused[6].weight,
+                        "fused quality head BN running mean":
+                        fused[1].running_mean})
     before = {k: v.detach().clone() for k, v in watched.items()}
 
     def semi_step():
@@ -385,7 +443,9 @@ def training_path(dev) -> dict:
     torch.cuda.synchronize()
     times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check_finite(metrics, state.model, "semi step")
+    check_finite(metrics, state.model, f"{head} semi step")
+    if head == "saqe":
+        check_terms(metrics, SAQE_SEMI_TERMS, "SAQE semi step")
     m = min(1e-3, (1.0 + state.step) / (10.0 + state.step))
     want = (1.0 - m) * e0 + m * conv.conv.weight.detach()
     if not torch.allclose(teacher_w, want, rtol=1e-5, atol=1e-7):
@@ -395,13 +455,13 @@ def training_path(dev) -> dict:
             raise AssertionError(f"the student's {k} did not move")
     ms = float(np.median(times))
     terms = {k: round(v.item(), 6) for k, v in metrics.items()}
-    print(f"[train] semi step {SEMI['n_labeled']} labeled + "
+    print(f"{tag} semi step {SEMI['n_labeled']} labeled + "
           f"{SEMI['n_unlabeled']} unlabeled x {N_POINTS} x 4: median "
           f"{ms:.3f} ms over {len(times)} steps ({times}), "
           f"{b_semi / ms * 1e3:.2f} scenes/s, peak device memory "
           f"{peak:.3f} GiB")
-    print(f"[train] semi step terms (last step): {terms}")
-    print(f"[train] student and BN running stats moved; teacher moved by "
+    print(f"{tag} semi step terms (last step): {terms}")
+    print(f"{tag} student and BN running stats moved; teacher moved by "
           f"the EMA rule (m={m:.6f}, step {state.step})")
 
     sup_batch = dict(points=batch["points_raw_s"][:SUP_B],
@@ -409,16 +469,31 @@ def training_path(dev) -> dict:
                      gt_labels=batch["gt_labels"][:SUP_B],
                      gt_valid=batch["gt_valid"][:SUP_B],
                      aug=batch["aug_s"].slice(0, SUP_B))
-    sup = make_supervised_train_step()
+    sup = make_supervised_train_step(head=head)
+    torch.cuda.reset_peak_memory_stats()
     sup_times, sup_metrics = timed_steps(
         lambda: sup(state, sup_batch, generator=gen), TIMED_STEPS)
-    check_finite(sup_metrics, state.model, "supervised step")
+    sup_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_finite(sup_metrics, state.model, f"{head} supervised step")
+    if head == "saqe":
+        check_terms(sup_metrics, SAQE_PRETRAIN_TERMS,
+                    "SAQE supervised step")
     sup_ms = float(np.median(sup_times))
-    print(f"[train] supervised step B={SUP_B} x {N_POINTS} x 4: median "
+    print(f"{tag} supervised step B={SUP_B} x {N_POINTS} x 4: median "
           f"{sup_ms:.3f} ms over {len(sup_times)} steps ({sup_times}), "
-          f"{SUP_B / sup_ms * 1e3:.2f} scenes/s; terms "
+          f"{SUP_B / sup_ms * 1e3:.2f} scenes/s, peak device memory "
+          f"{sup_peak:.3f} GiB; terms "
           f"{ {k: round(v.item(), 6) for k, v in sup_metrics.items()} }")
-    return dict(semi_ms=ms, sup_ms=sup_ms, peak_gib=peak)
+    return dict(semi_ms=ms, sup_ms=sup_ms, peak_gib=peak,
+                sup_peak_gib=sup_peak)
+
+
+def check_terms(metrics: dict, want: tuple, what: str) -> None:
+    """Every loss term of ``want`` is among the metrics (finite: see
+    ``check_finite``)."""
+    missing = sorted(set(want) - set(metrics))
+    if missing:
+        raise AssertionError(f"{what}: loss terms {missing} missing")
 
 
 def gpu_vs_cpu_training_step(dev) -> None:
@@ -606,10 +681,7 @@ def runner_phase(dev, bare: dict) -> dict:
             f"6), checkpoint {saved_step}")
     print(f"[runner] launches during the runner's training path: "
           f"{launches['runner']}")
-    for name in TRAIN_KERNELS:
-        if launches["runner"][name] <= 0:
-            raise AssertionError(f"kernel {name} was never launched on the "
-                                 "runner's training path")
+    check_launches(launches["runner"], "runner's training")
 
     # the checkpoint the semi run wrote reloads bit for bit
     fresh = runner.init_state(cfg, runner.build_model(cfg), 1, dev)
@@ -686,14 +758,8 @@ def runner_phase(dev, bare: dict) -> dict:
     # ----- end of the runner's eval path
     print(f"[runner] launches during the runner's eval path: "
           f"{launches['runner_eval']}")
-    for name in RUNNER_EVAL_KERNELS:
-        if launches["runner_eval"][name] <= 0:
-            raise AssertionError(f"kernel {name} was never launched on the "
-                                 "runner's eval path")
-    for path in ("runner", "runner_eval"):
-        for name in OFF_PATH:
-            if launches[path][name] != 0:
-                raise AssertionError(f"{name} was launched on path {path}")
+    check_launches(launches["runner_eval"], "runner's eval",
+                   need=RUNNER_EVAL_KERNELS)
     for who, res in results.items():
         for k in ("mAP_0.25", "mAR_0.25"):
             if not 0.0 <= res.get(k, -1.0) <= 1.0:
@@ -732,6 +798,334 @@ def runner_phase(dev, bare: dict) -> dict:
           f"{[round(r['loss'], 4) for r in resume_rows]}; num_pseudo "
           f"{[r['num_pseudo'] for r in semi_rows + resume_rows]}")
     return dict(launches=launches, **out)
+
+
+def saqe_model(name: str = SAQE_CONFIG):
+    """The model of a named SAQE config, as the runner builds it."""
+    from nesie_tpu_torch.config import get_config
+    from nesie_tpu_torch.train import runner
+
+    return runner.build_model(get_config(name))
+
+
+def saqe_grid_queries(seeds, n_boxes: int, seed: int):
+    """QualityEstimation's grid for ``n_boxes`` boxes a row, centred at
+    the first seeds with sizes of 0.3-1.5 m, heading 0 (ScanNet):
+    (B, n_boxes * 162, 3)."""
+    import torch
+
+    from nesie_tpu_torch.nn.quality_estimation import make_saqe_side_grids
+
+    b = seeds.shape[0]
+    gen = torch.Generator(seeds.device).manual_seed(seed)
+    size = 0.3 + 1.2 * torch.rand((b, n_boxes, 3), generator=gen,
+                                  device=seeds.device)
+    heading = torch.zeros((b, n_boxes), device=seeds.device)
+    grid = make_saqe_side_grids(seeds[:, :n_boxes], size, heading)
+    return grid.reshape(b, n_boxes * SAQE_GRID, 3).contiguous()
+
+
+def scene_agreement(gpu: dict, cpu: dict, keys) -> tuple[float, float]:
+    """One scene's head outputs on the card and on the CPU: the share of
+    its 256 proposals whose ``keys`` all agree within ATOL + RTOL * |cpu|,
+    and the largest difference."""
+    import torch
+
+    agree = torch.ones(256, dtype=torch.bool)
+    worst = 0.0
+    for key in keys:
+        g, c = gpu[key][0].cpu(), cpu[key][0]
+        ok = (g - c).abs() <= ATOL + RTOL * c.abs()
+        agree &= ok.reshape(256, -1).all(dim=1)
+        worst = max(worst, (g - c).abs().max().item())
+    return agree.float().mean().item(), worst
+
+
+def check_launches(counts: dict, path: str, forwards: int | None = None,
+                   need=TRAIN_KERNELS) -> None:
+    """Each kernel of ``need`` launched on ``path``, the second references
+    not; with ``forwards``, the ball query and three-NN at their count a
+    forward."""
+    for name in need:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the "
+                                 f"{path} path")
+    for name in OFF_PATH:
+        if counts[name] != 0:
+            raise AssertionError(f"{name} was launched on the {path} path")
+    if forwards is not None and (
+            counts["ball_query"] != SAQE_BQ_PER_FORWARD * forwards
+            or counts["three_nn"] != SAQE_3NN_PER_FORWARD * forwards):
+        raise AssertionError(
+            f"{path}: {counts['ball_query']} ball queries and "
+            f"{counts['three_nn']} three-NN launches for {forwards} "
+            f"forwards (want {SAQE_BQ_PER_FORWARD} and "
+            f"{SAQE_3NN_PER_FORWARD} a forward)")
+
+
+def saqe_phase(dev, scenes, requests, nesie: dict) -> dict:
+    """[saqe]: the SAQE family on the card. Three-NN at the quality
+    module's grid; the flagship SAQE model's eval forward at B=32 (ScanNet,
+    and the SUN RGB-D test config), one scene against the CPU, three
+    requests through ``init_detector(config name)``, the bare semi and
+    supervised steps, and the train and test CLIs on ``[runner]``'s
+    dataset. Launch counts set to 0 before and read after each of its
+    four paths. ``nesie``: this run's Nesie numbers, printed beside.
+    Returns the launches by path and three-NN's entries by shape."""
+    import shutil
+
+    import torch
+
+    from nesie_tpu_torch.apis import init_detector
+    from nesie_tpu_torch.config import apply_overrides, get_config
+    from nesie_tpu_torch.data import io
+    from nesie_tpu_torch.data.dataset import ScanNetScenes
+    from nesie_tpu_torch.eval.postprocess import decode_and_nms
+    from nesie_tpu_torch.nn.detector import init_weights_flax_, randomize_bn_
+    from nesie_tpu_torch.ops import _build, pointops
+    from nesie_tpu_torch.ops.fps import fps_onchip_cuda
+    from nesie_tpu_torch.ops.three_nn import (
+        three_nn_cuda,
+        three_nn_plan,
+        three_nn_ref,
+    )
+    from nesie_tpu_torch.tools import test as test_cli
+    from nesie_tpu_torch.tools import train as train_cli
+    from nesie_tpu_torch.tools.profile_eval import profile_forward
+
+    t_phase = time.perf_counter()
+    launches, k4 = {}, {}
+    xyz = torch.from_numpy(np.stack(scenes)).to(dev)
+    seeds = pointops.gather_points(
+        xyz, fps_onchip_cuda(xyz, SEEDS)).contiguous()
+    del xyz
+
+    # ---- three-NN at the quality module's grid
+    for (what, b, m, n), boxes in zip(SAQE_K4_SHAPES, (256, 512)):
+        q = saqe_grid_queries(seeds[:b], boxes, seed=b)
+        src = seeds[:b]
+        tag = f"{what} B={b} M={m} N={n}"
+        err, k_ms, p_ms = kernel_phase(f"three_nn {tag}",
+                                       lambda: three_nn_cuda(q, src),
+                                       lambda: three_nn_ref(q, src))
+        lib_ms = time_ms(
+            lambda: torch.topk(torch.cdist(q, src), 3, largest=False), 5)
+        b_ms, b_by = three_nn_bound(b, m, n)
+        k4[tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms, plan=three_nn_plan(b, m))
+        print(f"[saqe] three_nn {tag}: {k_ms:.4f} ms (plan "
+              f"{k4[tag]['plan']}), {k_ms / b_ms:.3f} x its bound "
+              f"{b_ms:.4f} ms ({b_by}), plain {p_ms:.4f} ms, "
+              f"torch.topk(torch.cdist) {lib_ms:.4f} ms")
+        del q
+    del seeds
+    torch.cuda.empty_cache()
+
+    # ---- the eval path: B=32 forwards (ScanNet, SUN RGB-D), requests
+    model = saqe_model()
+    gen = torch.Generator().manual_seed(0)
+    init_weights_flax_(model, gen)
+    randomize_bn_(model, gen)
+    cpu_model = copy.deepcopy(model).eval()
+    model = model.to(dev).eval()
+    sun = saqe_model(SAQE_SUN)
+    init_weights_flax_(sun, gen)
+    randomize_bn_(sun, gen)
+    sun = sun.to(dev).eval()
+    sun_points = get_config(SAQE_SUN).data.num_points
+    batch = np.stack([io.add_height(s) for s in scenes]).astype(np.float32)
+    points = torch.from_numpy(batch).to(dev)
+    sun_batch = torch.from_numpy(np.stack([
+        io.add_height(make_scene_points(i, sun_points)) for i in range(B)
+    ]).astype(np.float32)).to(dev)
+
+    def forwards(net, x):
+        with torch.inference_mode():
+            out = net(x)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                out = net(x)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return times, out
+
+    _build.reset_launch_counts()
+    # ----- the SAQE eval path
+    times, out = forwards(model, points)
+    with torch.inference_mode():
+        decoded = decode_and_nms(out, points)
+        torch.cuda.synchronize()
+    sun_times, sun_out = forwards(sun, sun_batch)
+    detector = init_detector(SAQE_SERVE, device=dev)
+    served = []
+    for cloud in requests:
+        t0 = time.perf_counter()
+        res = detector(cloud)  # ends in a host copy: synchronised
+        served.append(((time.perf_counter() - t0) * 1e3, res))
+    launches["saqe_eval"] = _build.launch_counts()
+    # ----- end of the SAQE eval path
+    print(f"[saqe] launches during the SAQE eval path: "
+          f"{launches['saqe_eval']}")
+    check_launches(launches["saqe_eval"], "SAQE eval", forwards=12 + 3,
+                   need=EVAL_KERNELS)
+    if launches["saqe_eval"]["fps_onchip"] != 12:
+        raise AssertionError("SAQE eval path: want one fps_onchip launch a "
+                             "B=32 forward")
+    ms, sun_ms = float(np.median(times)), float(np.median(sun_times))
+    print(f"[saqe] eval forward B={B} x {N_POINTS} x 4 ({SAQE_CONFIG}'s "
+          f"model): median {ms:.3f} ms over {len(times)} runs ({times}), "
+          f"{B / ms * 1e3:.2f} scenes/s; this run's Nesie eval forward "
+          f"{nesie['eval_ms']:.3f} ms (SAQE / Nesie "
+          f"{ms / nesie['eval_ms']:.4f})")
+    print(f"[saqe] SUN RGB-D eval forward B={B} x {sun_points} x 4 "
+          f"({SAQE_SUN}: 10 classes, box headings): median {sun_ms:.3f} ms "
+          f"over {len(sun_times)} runs ({sun_times})")
+    for res, name, classes in ((out, "ScanNet", 18), (sun_out, "SUN RGB-D",
+                                                      10)):
+        for key, shape in (("bbox_preds", (B, 256, 7)),
+                           ("R_obj_scores", (B, 256, 2)),
+                           ("rotate_scores", (B, 256, classes)),
+                           ("iou_scores", (B, 256, classes)),
+                           ("side_scores", (B, 256, 6, classes))):
+            v = res[key]
+            if tuple(v.shape) != shape or not torch.isfinite(v).all():
+                raise AssertionError(f"SAQE {name} {key}: shape "
+                                     f"{tuple(v.shape)} (want {shape}) or "
+                                     "non-finite values")
+    if not sun_out["bbox_preds"][..., 6].abs().sum() > 0:
+        raise AssertionError("SUN RGB-D SAQE forward: all headings 0")
+    print(f"[saqe] decode_and_nms (R_obj objectness): selected proposals "
+          f"per scene {decoded['selected'].sum(dim=1).tolist()}")
+    for i, (lat, res) in enumerate(served):
+        if not (np.isfinite(res["boxes_3d"]).all()
+                and np.isfinite(res["scores_3d"]).all()):
+            raise AssertionError(f"SAQE request {i}: non-finite output")
+        print(f"[saqe] request {i} ({SAQE_SERVE}, init_detector): "
+              f"{lat:.3f} ms, {len(res['boxes_3d'])} boxes")
+    with torch.inference_mode():
+        prof = profile_forward(model, points, runs=2)
+    print(f"[saqe] eval forward under the profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
+          f"idle share {prof['idle_share']:.3f}; three-NN "
+          f"{prof['groups'].get('three_nn (CUDA, ours)', 0.0):.3f} ms a "
+          "forward")
+
+    # one scene on the CPU (plain versions) against the card
+    with torch.inference_mode():
+        gpu = model(points[:1])
+        t0 = time.perf_counter()
+        cpu = cpu_model(points[:1].cpu())
+        cpu_s = time.perf_counter() - t0
+    share, worst = scene_agreement(gpu, cpu,
+                                   ("bbox_preds", "R_obj_scores", "iou_scores"))
+    print(f"[saqe] CPU vs GPU, one scene (CPU forward {cpu_s:.2f} s): "
+          f"{share:.4f} of proposals agree within atol {ATOL} + rtol {RTOL} "
+          f"(boxes, R_obj, IoU); max |diff| {worst:.3e}")
+    if share < MIN_AGREE:
+        raise AssertionError(f"SAQE: only {share:.4f} of proposals agree")
+    del model, cpu_model, sun, points, sun_batch, out, sun_out, gpu, cpu
+    del detector
+    torch.cuda.empty_cache()
+
+    # ---- the training path: the bare steps
+    _build.reset_launch_counts()
+    bare = training_path(dev, head="saqe")
+    launches["saqe_train"] = _build.launch_counts()
+    # ----- end of the SAQE training path
+    print(f"[saqe] launches during the SAQE training path: "
+          f"{launches['saqe_train']}")
+    # 6 semi steps (teacher + student) and 6 supervised ones
+    check_launches(launches["saqe_train"], "SAQE training",
+                   forwards=2 * (TIMED_STEPS + 1) + (TIMED_STEPS + 1))
+    print(f"[saqe] bare steps beside this run's Nesie steps: semi "
+          f"{bare['semi_ms']:.3f} / {nesie['semi_ms']:.3f} ms "
+          f"({bare['semi_ms'] / nesie['semi_ms']:.4f}), peak "
+          f"{bare['peak_gib']:.3f} / {nesie['peak_gib']:.3f} GiB; "
+          f"supervised {bare['sup_ms']:.3f} / {nesie['sup_ms']:.3f} ms "
+          f"({bare['sup_ms'] / nesie['sup_ms']:.4f})")
+
+    # ---- the CLIs on [runner]'s dataset
+    base = ROOT / "build" / "runner_smoke"
+    data, work = base / "data", base / "saqe_work"
+    shutil.rmtree(work, ignore_errors=True)
+    over = [*RUNNER_OVER, "optim.max_epochs=1"]
+    common = ["--data-root", str(data), "--work-dir", str(work),
+              "--device", str(dev)]
+    _build.reset_launch_counts()
+    # ----- the SAQE CLIs' training path
+    train_cli.main([SAQE_PRETRAIN, *common, "--cfg-options", *over])
+    semi_state = train_cli.main([
+        SAQE_CONFIG, *common, "--load-from",
+        str(work / SAQE_PRETRAIN / "checkpoints"), "--cfg-options", *over])
+    launches["saqe_runner"] = _build.launch_counts()
+    # ----- end of the SAQE CLIs' training path
+    pre_rows = metric_rows(work / SAQE_PRETRAIN)
+    semi_rows = metric_rows(work / SAQE_CONFIG)
+    check_rows(pre_rows, "SAQE pretrain")
+    check_rows(semi_rows, "SAQE semi")
+    cfg = apply_overrides(get_config(SAQE_CONFIG), over)
+    if not (len(pre_rows) == len(semi_rows) == semi_state.step == 2):
+        raise AssertionError(f"SAQE CLI steps: pretrain {len(pre_rows)}, "
+                             f"semi {len(semi_rows)} (want 2 each)")
+    for rows, want, what in ((pre_rows, SAQE_PRETRAIN_TERMS, "pretrain"),
+                             (semi_rows, SAQE_SEMI_TERMS, "semi")):
+        check_terms(rows[-1], want, f"SAQE CLI {what}")
+    print(f"[saqe] launches during the SAQE CLIs' training path: "
+          f"{launches['saqe_runner']}")
+    check_launches(launches["saqe_runner"], "SAQE CLI training")
+    del semi_state
+    torch.cuda.empty_cache()
+
+    ckpt = work / SAQE_CONFIG / "checkpoints"
+    test_args = [SAQE_CONFIG, str(ckpt), "--data-root", str(data),
+                 "--device", str(dev), "--batch-size",
+                 str(RUNNER["eval_batch"]), "--cfg-options", *over]
+    val = ScanNetScenes(data, data / cfg.data.val_ann_file)
+    cloud = np.fromfile(str(val.scenes[0].pts_path), np.float32)
+    _build.reset_launch_counts()
+    # ----- the SAQE CLIs' eval path
+    t0 = time.perf_counter()
+    results = {"student": test_cli.main(test_args)}
+    eval_s = time.perf_counter() - t0
+    results["teacher"] = test_cli.main(test_args + ["--teacher"])
+    detector = init_detector(SAQE_CONFIG, ckpt, device=dev, cfg_options=over)
+    t0 = time.perf_counter()
+    served = detector(cloud.reshape(-1, 6)[:, :3])
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches["saqe_runner_eval"] = _build.launch_counts()
+    # ----- end of the SAQE CLIs' eval path
+    print(f"[saqe] launches during the SAQE CLIs' eval path: "
+          f"{launches['saqe_runner_eval']}")
+    check_launches(launches["saqe_runner_eval"], "SAQE CLI eval",
+                   need=RUNNER_EVAL_KERNELS)
+    for who, res in results.items():
+        for k in ("mAP_0.25", "mAR_0.25"):
+            if not 0.0 <= res.get(k, -1.0) <= 1.0:
+                raise AssertionError(f"SAQE {who} {k} = {res.get(k)}")
+    if not (np.isfinite(served["boxes_3d"]).all()
+            and np.isfinite(served["scores_3d"]).all()):
+        raise AssertionError("SAQE checkpoint request: non-finite output")
+    print(f"[saqe] CLIs: pretrain losses "
+          f"{[round(r['loss'], 4) for r in pre_rows]}, semi "
+          f"{[round(r['loss'], 4) for r in semi_rows]} (num_pseudo "
+          f"{[r['num_pseudo'] for r in semi_rows]}); test CLI on "
+          f"{len(val)} val scenes at B={RUNNER['eval_batch']}: student "
+          f"{eval_s:.3f} s, mAP_0.25 {results['student']['mAP_0.25']:.4f} "
+          f"mAR_0.25 {results['student']['mAR_0.25']:.4f}, teacher "
+          f"mAP_0.25 {results['teacher']['mAP_0.25']:.4f}; request from "
+          f"the checkpoint {serve_ms:.3f} ms, "
+          f"{len(served['boxes_3d'])} boxes")
+    print(f"[saqe] phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=launches, k4=k4)
+
+
+def make_scene_points(i: int, n: int):
+    """Room ``i`` of the SUN RGB-D forward's batch, ``n`` points."""
+    from nesie_tpu_torch.data.synthetic import make_scene
+
+    return make_scene(np.random.default_rng(200 + i), n)
 
 
 def main() -> int:
@@ -977,13 +1371,7 @@ def main() -> int:
     launches = {"lab": lab_launches, "eval": _build.launch_counts()}
     # ----- end of the eval path
     print(f"[slice] launches during the eval path: {launches['eval']}")
-    for name in EVAL_KERNELS:
-        if launches["eval"][name] <= 0:
-            raise AssertionError(f"kernel {name} was never launched on the "
-                                 "eval path")
-    for name in OFF_PATH:
-        if launches["eval"][name] != 0:
-            raise AssertionError(f"{name} was launched on the eval path")
+    check_launches(launches["eval"], "eval", need=EVAL_KERNELS)
     ms = float(np.median(times))
     print(f"[slice] eval forward B={B} x {N_POINTS} x 4: median {ms:.3f} ms "
           f"per batch over {len(times)} runs ({times}), "
@@ -1029,14 +1417,8 @@ def main() -> int:
         if not torch.equal(g.cpu(), c):
             raise AssertionError(f"backbone ball query of SA stage {i} "
                                  "differs between GPU and CPU")
-    agree = torch.ones(256, dtype=torch.bool)
-    worst = 0.0
-    for key in ("bbox_preds", "obj_scores", "iou_scores"):
-        g, c = gpu[key][0].cpu(), cpu[key][0]
-        ok = (g - c).abs() <= ATOL + RTOL * c.abs()
-        agree &= ok.reshape(256, -1).all(dim=1)
-        worst = max(worst, (g - c).abs().max().item())
-    share = agree.float().mean().item()
+    share, worst = scene_agreement(gpu, cpu,
+                                   ("bbox_preds", "obj_scores", "iou_scores"))
     print(f"[slice] CPU vs GPU, one scene (CPU forward {cpu_s:.2f} s): FPS "
           f"and backbone ball-query indices identical; {share:.4f} of "
           f"proposals agree within atol {ATOL} + rtol {RTOL}; max |diff| "
@@ -1053,13 +1435,7 @@ def main() -> int:
     launches["train"] = _build.launch_counts()
     # ----- end of the training path
     print(f"[train] launches during the training path: {launches['train']}")
-    for name in TRAIN_KERNELS:
-        if launches["train"][name] <= 0:
-            raise AssertionError(f"kernel {name} was never launched on the "
-                                 "training path")
-    for name in OFF_PATH:
-        if launches["train"][name] != 0:
-            raise AssertionError(f"{name} was launched on the training path")
+    check_launches(launches["train"], "training")
 
     # ---- 6. one training step, card vs CPU ------------------------------
     gpu_vs_cpu_training_step(dev)
@@ -1067,6 +1443,12 @@ def main() -> int:
     # ---- 7. the runner and the CLIs -----------------------------------
     torch.cuda.empty_cache()
     launches.update(runner_phase(dev, bare)["launches"])
+
+    # ---- 8. the SAQE family -------------------------------------------
+    torch.cuda.empty_cache()
+    saqe = saqe_phase(dev, scenes, requests, dict(eval_ms=ms, **bare))
+    launches.update(saqe["launches"])
+    k4_ms.update(saqe["k4"])
 
     sources = {
         "fps_onchip": ("nesie_tpu_torch/csrc/fps_onchip.cu",

@@ -1,9 +1,10 @@
 """High-level inference API. Counterpart of ``nesie_tpu/apis.py``
 (``Detector``, ``init_detector``, ``inference_detector``).
 
-``init_detector`` builds the port's VoteNetNesie on an explicit device.
-In the JAX package's form it takes a config name and a checkpoint
-directory that the runner wrote, and serves its student (or its teacher);
+``init_detector`` builds the port's VoteNetNesie (Nesie or SAQE head) on
+an explicit device. In the JAX package's form it takes a config name
+(``nesie-*`` or ``saqe-*``) and a checkpoint directory that the runner
+wrote, and serves its student (or its teacher);
 in the keyword form it loads weights from a reference-named ``.pth``, from
 the JAX package's variables, or from a seed. A ``Detector`` call runs one
 point cloud through height feature, point sampling, the eval forward,
@@ -73,7 +74,7 @@ def init_detector(checkpoint=None, checkpoint_dir=None, device="cuda",
     reference-named ``.pth``, or the JAX package's variables as a dict
     with ``params`` and ``batch_stats``.
     model_kwargs: VoteNetNesie overrides of the keyword form (the defaults
-    are the flagship).
+    are the flagship; ``head="saqe"`` for SAQE).
     """
     if isinstance(checkpoint, str) and _is_config_name(checkpoint):
         return _detector_from_config(checkpoint, checkpoint_dir, device,

@@ -2,8 +2,8 @@
 checkpoints.
 
 ``state_dict_from_flax`` maps the JAX package's VoteNetNesie variables
-(nested dicts of numpy arrays), or a params-shaped tree alone, onto the
-port's ``state_dict``. The port's
+(nested dicts of numpy arrays; Nesie or SAQE head), or a params-shaped
+tree alone, onto the port's ``state_dict``. The port's
 names are the reference's, so ``nesie_tpu.convert_torch.convert_state_dict``
 maps the port's ``state_dict()`` back: the two are inverses.
 
@@ -69,9 +69,17 @@ def _quality_head(sd, prefix, trunk_p, trunk_s, out):
     _linear(sd, f"{prefix}.6", out)
 
 
+def _saqe_side_head(sd, prefix, trunk_p, trunk_s, out):
+    """QualityEstimation's side head: Linear-BN-ReLU, Linear."""
+    _linear(sd, f"{prefix}.0", trunk_p["dense0"])
+    _bn(sd, f"{prefix}.1", trunk_p["norm0"], _sub(trunk_s, "norm0"))
+    _linear(sd, f"{prefix}.3", out)
+
+
 def state_dict_from_flax(params: dict, batch_stats: dict | None = None) -> dict:
-    """JAX VoteNetNesie (Nesie head) variables -> the port's state_dict
-    (name -> torch.Tensor).
+    """JAX VoteNetNesie variables, Nesie or SAQE head (told apart by the
+    quality module's ``global_trunk``), -> the port's state_dict (name ->
+    torch.Tensor).
 
     With ``batch_stats=None`` only the parameters are mapped, so that a
     params-shaped tree (gradients, an optimizer's moments, the EMA
@@ -105,15 +113,18 @@ def state_dict_from_flax(params: dict, batch_stats: dict | None = None) -> dict:
         _linear(sd, f"bbox_head.conv_pred.{name}", cp[name])
 
     gp, gs = hp["grid_conv"], _sub(hs, "grid_conv")
-    minis = [f"side_mini{i}" for i in range(6)] + ["box_mini"]
+    saqe = "global_trunk" in gp  # SAQE's QualityEstimation
+    minis = [f"side_mini{i}" for i in range(6)] + ([] if saqe else ["box_mini"])
     for i, name in enumerate(minis):
         _mini_pointnet(sd, f"bbox_head.grid_conv.mlps_before.{i}", gp[name],
                        _sub(gs, name))
     heads = [(f"side_head{i}_trunk", f"side_head{i}_out") for i in range(6)]
-    heads.append(("iou_head_trunk", "iou_head_out"))
+    heads.append(("global_trunk", "global_out") if saqe
+                 else ("iou_head_trunk", "iou_head_out"))
     for i, (trunk, out) in enumerate(heads):
-        _quality_head(sd, f"bbox_head.grid_conv.mlps_head.{i}", gp[trunk],
-                      _sub(gs, trunk), gp[out])
+        convert = _saqe_side_head if saqe and i < 6 else _quality_head
+        convert(sd, f"bbox_head.grid_conv.mlps_head.{i}", gp[trunk],
+                _sub(gs, trunk), gp[out])
     return {k: torch.tensor(v) for k, v in sd.items()}
 
 

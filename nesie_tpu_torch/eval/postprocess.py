@@ -18,13 +18,17 @@ def decode_and_nms(results: dict, points: torch.Tensor, nms_thr: float = 0.25,
                    use_iou_for_nms: bool = True) -> dict:
     """Batched decode + class-aware NMS.
 
-    results: head results (obj_scores, sem_scores, bbox_preds, iou_scores);
+    results: head results (obj_scores or SAQE's R_obj_scores, sem_scores,
+    bbox_preds, iou_scores);
     points: (B, N, >=3) the input clouds, for the non-empty-box filter.
     Returns bbox (B, P, 7), obj_scores (B, P), sem_scores (B, P, C) and
     selected (B, P) bool. The point-in-box test runs one scene at a time,
     an (N, P) mask each.
     """
-    obj = torch.softmax(results["obj_scores"], dim=-1)[..., -1]
+    # SAQE's get_bboxes scores objectness from the quality module's R_obj
+    # branch (saqe_head.py:434); Nesie's from the prediction head's
+    obj_logits = results.get("R_obj_scores", results["obj_scores"])
+    obj = torch.softmax(obj_logits, dim=-1)[..., -1]
     sem = torch.softmax(results["sem_scores"], dim=-1)
     bbox = results["bbox_preds"]
     if use_iou_for_nms:

@@ -1,5 +1,5 @@
-"""Detector assembly: PointNet++ backbone + Nesie head. Counterpart of
-``nesie_tpu/nn/detector.py`` (Nesie head only)."""
+"""Detector assembly: PointNet++ backbone + the Nesie or the SAQE head.
+Counterpart of ``nesie_tpu/nn/detector.py``."""
 from __future__ import annotations
 
 import math
@@ -10,11 +10,14 @@ from torch import nn
 
 from .nesie_head import NesieHead
 from .pointnet2 import PointNet2SASSG
+from .saqe_head import SAQEHead
 
 
 class VoteNetNesie(nn.Module):
     """Backbone + head forward, returning the head's results dict. The
-    defaults are the flagship ScanNet model."""
+    defaults are the flagship ScanNet model. ``head="nesie"`` is the
+    ICCV'23 NesieHead, ``head="saqe"`` the journal SAQEHead (the
+    reference's VoteNetSAQE; ``sizes`` unused)."""
 
     def __init__(
         self,
@@ -33,17 +36,22 @@ class VoteNetNesie(nn.Module):
         fp_channels: Sequence[Sequence[int]] = ((256, 256), (256, 256)),
         jitter_scale: float = 0.3,
         jitter_size_bias: float = 0.0,
+        head: str = "nesie",
     ):
         super().__init__()
         seed_feat_dim = fp_channels[-1][-1]
         self.backbone = PointNet2SASSG(in_channels, num_points, radii,
                                        num_samples, sa_channels, fp_channels)
-        self.bbox_head = NesieHead(
+        common = dict(
             num_classes=num_classes, reg_max=reg_max,
             num_proposal=num_proposal, seed_feat_dim=seed_feat_dim,
-            sizes=sizes, vote_conv_channels=(seed_feat_dim, seed_feat_dim),
+            vote_conv_channels=(seed_feat_dim, seed_feat_dim),
             dataset_name=dataset_name, jitter_scale=jitter_scale,
             jitter_size_bias=jitter_size_bias)
+        if head == "saqe":
+            self.bbox_head = SAQEHead(**common)
+        else:
+            self.bbox_head = NesieHead(sizes=sizes, **common)
 
     def forward(self, points: torch.Tensor, sample_mod: str = "seed",
                 with_jitter: bool = False, noise=None,

@@ -1,5 +1,5 @@
-"""Prediction head layers: the integral side decode and the reliable conv
-head. Counterpart of ``nesie_tpu/nn/heads.py``."""
+"""Prediction head layers: the integral side decode, SAQE's angle decode and
+the reliable conv head. Counterpart of ``nesie_tpu/nn/heads.py``."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -15,6 +15,15 @@ def integral_expectation(logits: torch.Tensor, reg_max: int) -> torch.Tensor:
     project = torch.linspace(0.0, 1.0, reg_max + 1, dtype=logits.dtype,
                              device=logits.device)
     return (torch.softmax(logits, dim=-1) * project).sum(dim=-1)
+
+
+def angle_integral_expectation(logits: torch.Tensor) -> torch.Tensor:
+    """SAQE's angle decode (reference AngleIntegral, saqe_head.py:54-87,
+    and side2box:206-207): the softmax expectation over {0, 1/n, ..., 1}
+    (n = channels - 1) times 2 pi, wrapped to (-pi, pi]: (..., n+1) ->
+    (...)."""
+    ang = integral_expectation(logits, logits.shape[-1] - 1) * 2 * torch.pi
+    return torch.where(ang > torch.pi, ang - 2 * torch.pi, ang)
 
 
 class ReliableConvBboxHead(nn.Module):

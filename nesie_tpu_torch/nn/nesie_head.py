@@ -68,7 +68,74 @@ def jitter_boxes(bbox_pred, noise, noise_scale: float = 0.3,
     return torch.cat([center_j, size_j, bbox_pred[..., 6:7]], dim=-1)
 
 
-class NesieHead(nn.Module):
+class ProposalHead(nn.Module):
+    """The forward steps NesieHead and SAQEHead share: vote, aggregate
+    (``sample_mod``), and the detached (and jittered) proposal boxes that
+    the quality module scores. A subclass sets ``vote_module``,
+    ``vote_aggregation``, ``num_proposal``, ``dataset_name`` and the
+    jitter's ``jitter_scale`` and ``jitter_size_bias``."""
+
+    def _aggregate(self, feat_dict: dict, sample_mod: str):
+        """Returns the results dict (seed, vote and aggregated tensors) and
+        the aggregated features."""
+        if sample_mod not in SUPPORTED_SAMPLE_MODS:
+            raise NotImplementedError(
+                f"sample_mod={sample_mod!r} is not ported (ROADMAP §1.3); "
+                f"the port supports {SUPPORTED_SAMPLE_MODS}")
+        seed_points = feat_dict["fp_xyz"][-1]
+        seed_features = feat_dict["fp_features"][-1]
+        vote_points, vote_features, vote_offset = self.vote_module(
+            seed_points, seed_features)
+        results = dict(
+            seed_points=seed_points,
+            seed_features=seed_features,
+            seed_indices=feat_dict["fp_indices"][-1],
+            vote_points=vote_points,
+            vote_features=vote_features,
+            vote_offset=vote_offset,
+        )
+
+        B = seed_points.shape[0]
+        if sample_mod == "vote":  # FPS over the votes
+            sample_indices = None
+        else:
+            # seeds are the FPS-ordered SA2 points: by FPS prefix
+            # consistency the head's seed FPS is an arange
+            sample_indices = torch.arange(
+                self.num_proposal, dtype=torch.int32,
+                device=seed_points.device).expand(B, -1)
+        aggregated_points, features, aggregated_indices = \
+            self.vote_aggregation(vote_points, vote_features,
+                                  indices=sample_indices)
+        results["aggregated_points"] = aggregated_points
+        results["aggregated_features"] = features
+        results["aggregated_indices"] = aggregated_indices
+        return results, features
+
+    def _quality_boxes(self, bbox_pred, results: dict, with_jitter: bool,
+                       noise, generator):
+        """The quality module's boxes: ``bbox_pred`` and, with jitter, its
+        jittered copies (stored as ``jitter_bbox_preds``), detached;
+        returns (boxes (B, P or 2P, 7), heading), the heading 0 for
+        ScanNet."""
+        if with_jitter:
+            if noise is None:
+                noise = jitter_noise(bbox_pred[..., :3].shape, generator,
+                                     bbox_pred.device)
+            jitter = jitter_boxes(bbox_pred, noise, self.jitter_scale,
+                                  self.jitter_size_bias)
+            results["jitter_bbox_preds"] = jitter
+            both = torch.cat([bbox_pred, jitter], dim=1).detach()
+        else:
+            both = bbox_pred.detach()
+        if self.dataset_name == "ScanNet":
+            heading = torch.zeros_like(both[..., 6])
+        else:
+            heading = both[..., 6]
+        return both, heading
+
+
+class NesieHead(ProposalHead):
     """Forward pass of the Nesie detection head. Returns obj_scores
     (B,P,2), sem_scores (B,P,C), bbox_preds (B,P,7), surface_pred/scale
     (B,P,6), bbox_probs (B,P,6,n+1), iou_scores (B,P,C) and side_scores
@@ -118,40 +185,11 @@ class NesieHead(nn.Module):
         is ``noise`` (two (B, P, 3) tensors) or drawn from ``generator``.
         In train mode the quality module's BN statistics then cover all
         2P proposals, as in the reference."""
-        if sample_mod not in SUPPORTED_SAMPLE_MODS:
-            raise NotImplementedError(
-                f"sample_mod={sample_mod!r} is not ported; the port supports "
-                f"{SUPPORTED_SAMPLE_MODS}")
         if with_jitter and noise is None and generator is None:
             raise ValueError("with_jitter needs noise or a generator")
-        seed_points = feat_dict["fp_xyz"][-1]
-        seed_features = feat_dict["fp_features"][-1]
-        vote_points, vote_features, vote_offset = self.vote_module(
-            seed_points, seed_features)
-        results = dict(
-            seed_points=seed_points,
-            seed_features=seed_features,
-            seed_indices=feat_dict["fp_indices"][-1],
-            vote_points=vote_points,
-            vote_features=vote_features,
-            vote_offset=vote_offset,
-        )
-
-        B = seed_points.shape[0]
-        if sample_mod == "vote":  # FPS over the votes
-            sample_indices = None
-        else:
-            # seeds are the FPS-ordered SA2 points: by FPS prefix
-            # consistency the head's seed FPS is an arange
-            sample_indices = torch.arange(
-                self.num_proposal, dtype=torch.int32,
-                device=seed_points.device).expand(B, -1)
-        aggregated_points, features, aggregated_indices = \
-            self.vote_aggregation(vote_points, vote_features,
-                                  indices=sample_indices)
-        results["aggregated_points"] = aggregated_points
-        results["aggregated_features"] = features
-        results["aggregated_indices"] = aggregated_indices
+        results, features = self._aggregate(feat_dict, sample_mod)
+        aggregated_points = results["aggregated_points"]
+        B = aggregated_points.shape[0]
 
         cls_pred, reg_pred = self.conv_pred(features)
         results["obj_scores"] = cls_pred[..., :2]
@@ -170,23 +208,12 @@ class NesieHead(nn.Module):
         results["bbox_probs"] = torch.softmax(dist_logits, dim=-1)
 
         # quality module on the detached (and jittered) boxes
-        if with_jitter:
-            if noise is None:
-                noise = jitter_noise(bbox_pred[..., :3].shape, generator,
-                                     bbox_pred.device)
-            jitter = jitter_boxes(bbox_pred, noise, self.jitter_scale,
-                                  self.jitter_size_bias)
-            results["jitter_bbox_preds"] = jitter
-            both = torch.cat([bbox_pred, jitter], dim=1).detach()
-        else:
-            both = bbox_pred.detach()
-        if self.dataset_name == "ScanNet":
-            heading = torch.zeros_like(both[..., 6])
-        else:
-            heading = both[..., 6]
+        both, heading = self._quality_boxes(bbox_pred, results, with_jitter,
+                                            noise, generator)
         side_scores, iou_scores = self.grid_conv(
-            both[..., :3], both[..., 3:6], heading, seed_points.detach(),
-            seed_features.detach(), results["bbox_probs"].detach())
+            both[..., :3], both[..., 3:6], heading,
+            results["seed_points"].detach(),
+            results["seed_features"].detach(), results["bbox_probs"].detach())
         iou_scores = torch.sigmoid(iou_scores)
         side_scores = torch.sigmoid(side_scores)
         results["iou_scores"] = iou_scores[:, :P]

@@ -14,9 +14,9 @@ pretrain's.
     python -m nesie_tpu_torch.tools.validation_run --out build/validation \\
         --seeds 0,1,2 --json-out build/validation/study.json
 
-The Nesie head only (the JAX tool's ``--head saqe`` waits for the SAQE
-family, ROADMAP §1.2). A variant that needs an option the port lacks
-(``teacher_jitter=true``) fails with the runner's
+``--head saqe`` runs the same protocol on the ``saqe-votenet-scannet-*``
+configs, as the JAX tool's ``--head``. A variant that needs an option the
+port lacks (``teacher_jitter=true``) fails with the runner's
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -77,6 +77,7 @@ def run_seed(args, root, seed, variants):
     )
     from nesie_tpu_torch.train import runner
 
+    prefix = "saqe" if args.head == "saqe" else "nesie"
     model_over = ([f"model.{k}={v}" for k, v in MID_MODEL.items()]
                   + args.model_overrides)
     common_over = [f"data.num_points={args.num_points}", "log_interval=20"]
@@ -93,7 +94,7 @@ def run_seed(args, root, seed, variants):
         (root / split_file).write_text("\n".join(sorted(picked)) + "\n")
         common_over = common_over + [f"data.label_list_file={split_file}"]
 
-    pcfg = get_config(f"nesie-votenet-scannet-pretrain-{args.split}")
+    pcfg = get_config(f"{prefix}-votenet-scannet-pretrain-{args.split}")
     pcfg = apply_overrides(pcfg, model_over + common_over + [
         f"optim.max_epochs={args.pretrain_epochs}",
         f"optim.lr_milestones=({int(args.pretrain_epochs*0.7)},"
@@ -123,7 +124,7 @@ def run_seed(args, root, seed, variants):
 
     results = {"pretrain": pre_map, "pretrain_min": pre_min, "variants": {}}
     for vname, vover in variants:
-        scfg = get_config(f"nesie-votenet-scannet-train-{args.split}")
+        scfg = get_config(f"{prefix}-votenet-scannet-train-{args.split}")
         scfg = apply_overrides(scfg, model_over + common_over + [
             f"optim.max_epochs={args.semi_epochs}",
             f"optim.lr_milestones=({int(args.semi_epochs*0.7)},"
@@ -184,6 +185,15 @@ def summary(per_seed, variants) -> tuple[list[str], dict]:
     seeds = sorted(per_seed)
     pre = _agg([per_seed[s]["pretrain"][KEY] for s in seeds])
     lines = [f"pretrain {KEY}: {pre[0]:.4f} ± {pre[1]:.4f}"]
+    for s in seeds:
+        r = per_seed[s]
+        parts = [f"pretrain {r['pretrain'][KEY]:.4f}"]
+        for vname, _ in variants:
+            v = r["variants"][vname]
+            parts.append(f"[{vname}] student {v['student'][KEY]:.4f} teacher "
+                         f"{v['teacher'][KEY]:.4f} (pseudo/step "
+                         f"{v['num_pseudo_mean']:.3f})")
+        lines.append(f"seed {s}: " + ", ".join(parts))
     gates = {}
     for vname, _ in variants:
         st = _agg([per_seed[s]["variants"][vname]["student"][KEY]
@@ -218,6 +228,7 @@ def main(argv=None):
     p.add_argument("--seeds", default="0",
                    help="comma list; the study runs the full pipeline per "
                         "seed and reports mean±std")
+    p.add_argument("--head", default="nesie", choices=["nesie", "saqe"])
     p.add_argument("--split", default="010",
                    choices=["005", "010", "020", "050"],
                    help="labeled split (reference config family suffix)")
@@ -268,6 +279,7 @@ def main(argv=None):
     if args.json_out:
         Path(args.json_out).write_text(json.dumps(payload, indent=2))
     print(json.dumps(per_seed, indent=2))
+    print(f"head {args.head}")
     for line in lines:
         print(line)
     print("gates: " + ", ".join(f"{k}: {'yes' if v else 'NO'}"

@@ -42,6 +42,7 @@ from nesie_tpu_torch.data.dataset import (
 )
 from nesie_tpu_torch.data.prefetch import Prefetcher
 from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_flax_
+from nesie_tpu_torch.nn.nesie_head import SUPPORTED_SAMPLE_MODS
 from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
 from nesie_tpu_torch.train.state import (
     TrainState,
@@ -59,9 +60,10 @@ MESH_SIZE = 1  # devices a run spans; checkpoints record it
 def check_supported(cfg: ExperimentConfig) -> None:
     """Raise ``NotImplementedError`` for every setting the port lacks."""
     missing = []
-    if cfg.model.head != "nesie":
-        missing.append(f"model.head={cfg.model.head!r} (ROADMAP §1.2, the "
-                       "SAQE family)")
+    for key, mode in (("sample_mod_train", cfg.sample_mod_train),
+                      ("test.sample_mod", cfg.test.sample_mod)):
+        if mode not in SUPPORTED_SAMPLE_MODS:
+            missing.append(f"{key}={mode!r} (ROADMAP §1.3)")
     if cfg.model.compute_dtype is not None:
         missing.append(f"model.compute_dtype={cfg.model.compute_dtype!r} "
                        "(ROADMAP §1.3)")
@@ -93,6 +95,7 @@ def build_model(cfg: ExperimentConfig) -> VoteNetNesie:
         fp_channels=tuple(map(tuple, m.fp_channels)),
         jitter_scale=m.jitter_scale,
         jitter_size_bias=m.jitter_size_bias,
+        head=m.head,
     )
 
 
@@ -127,7 +130,7 @@ def _sup_step_fn(cfg: ExperimentConfig):
     return make_supervised_train_step(
         cfg.loss, cfg.sample_mod_train, cfg.ema_momentum, cfg.ema_warm_up,
         cfg.pos_distance_thr, cfg.neg_distance_thr,
-        ema_bn_stats=cfg.ema_bn_stats)
+        ema_bn_stats=cfg.ema_bn_stats, head=cfg.model.head)
 
 
 def _semi_step_fn(cfg: ExperimentConfig, n_labeled: int,
@@ -137,7 +140,8 @@ def _semi_step_fn(cfg: ExperimentConfig, n_labeled: int,
         sample_mod=cfg.sample_mod_train, ema_momentum=cfg.ema_momentum,
         ema_warm_up=cfg.ema_warm_up, un_label_weight=cfg.un_label_weight,
         pos_distance_thr=cfg.pos_distance_thr,
-        neg_distance_thr=cfg.neg_distance_thr, ema_bn_stats=cfg.ema_bn_stats)
+        neg_distance_thr=cfg.neg_distance_thr, ema_bn_stats=cfg.ema_bn_stats,
+        head=cfg.model.head)
 
 
 class CheckpointManager:

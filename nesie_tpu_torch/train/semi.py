@@ -26,7 +26,9 @@ from nesie_tpu_torch.data.augment import (
 from nesie_tpu_torch.losses import iou_3d_loss, softmax_cross_entropy, surface_loss_mse
 from nesie_tpu_torch.nn.layers import frozen_bn_stats
 from .pseudo_label import PseudoLabelConfig, classwise_acc, get_pseudo_labels
+from .saqe_loss import saqe_supervised_loss, saqe_unsup_loss
 from .state import TrainState, apply_gradients, ema_update
+from .step import saqe_loss_config
 from .sup_loss import NesieLossConfig, nesie_supervised_loss, sigma_poly
 from .targets import HeadTargets, get_targets
 
@@ -122,11 +124,14 @@ def make_semi_train_step(
     pos_distance_thr: float = 0.3,
     neg_distance_thr: float = 0.6,
     ema_bn_stats: bool = False,
+    head: str = "nesie",
 ):
     """Build ``step(state, ulb_state, batch, noise=None, generator=None)
     -> (ulb_state, metrics)``; ``state`` is updated in place. The teacher
     runs without jittered proposals (the JAX package's default,
-    ``teacher_jitter=False``).
+    ``teacher_jitter=False``). ``head="saqe"`` takes the SAQE semi-phase
+    losses; the pseudo-labels are built as for Nesie, from the teacher's
+    ``obj_scores``, as the JAX package builds them (ROADMAP §3).
 
     batch (B = n_labeled + n_unlabeled, labeled first):
         points_raw_s, points_raw_t (B, N, C): the un-augmented strong and
@@ -137,6 +142,22 @@ def make_semi_train_step(
         ulb_scan_idx (B,) int64: UlbState rows of the unlabeled slots.
     noise / generator: the student's jitter noise (NesieHead.forward).
     """
+    if head == "saqe":
+        saqe_cfg = saqe_loss_config(loss_cfg)
+
+        def sup_loss_fn(out, targets):
+            return saqe_supervised_loss(out, targets, saqe_cfg, phase="semi")
+
+        def unsup_loss_fn(out, targets, quality):
+            return saqe_unsup_loss(out, targets, quality, saqe_cfg,
+                                   un_label_weight)
+    else:
+        def sup_loss_fn(out, targets):
+            return nesie_supervised_loss(out, targets, loss_cfg)
+
+        def unsup_loss_fn(out, targets, quality):
+            return nesie_unsup_loss(out, targets, quality, loss_cfg,
+                                    un_label_weight)
 
     def step(state: TrainState, ulb_state: UlbState, batch: dict, noise=None,
              generator: torch.Generator | None = None):
@@ -176,17 +197,15 @@ def make_semi_train_step(
             out_sup["aggregated_points"], pos_distance_thr=pos_distance_thr,
             neg_distance_thr=neg_distance_thr,
             gt_per_seed=loss_cfg.gt_per_seed)
-        sup_total, sup_terms = nesie_supervised_loss(out_sup, sup_targets,
-                                                     loss_cfg)
+        sup_total, sup_terms = sup_loss_fn(out_sup, sup_targets)
         unsup_targets = get_targets(
             points_s[n_labeled:, :, :3], pl_boxes[n_labeled:],
             pl.labels[n_labeled:], pl.valid[n_labeled:],
             out_unsup["aggregated_points"], pos_distance_thr=pos_distance_thr,
             neg_distance_thr=neg_distance_thr,
             gt_per_seed=loss_cfg.gt_per_seed)
-        unsup_total, unsup_terms = nesie_unsup_loss(
-            out_unsup, unsup_targets, pl.quality[n_labeled:], loss_cfg,
-            un_label_weight)
+        unsup_total, unsup_terms = unsup_loss_fn(
+            out_unsup, unsup_targets, pl.quality[n_labeled:])
         total = sup_total + unsup_total
 
         grad_norm = apply_gradients(state, total)

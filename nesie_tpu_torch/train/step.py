@@ -11,8 +11,22 @@ import torch
 
 from nesie_tpu_torch.data.augment import augment_boxes, augment_points
 from .state import TrainState, apply_gradients, ema_update
+from .saqe_loss import SAQELossConfig, saqe_supervised_loss
 from .sup_loss import NesieLossConfig, nesie_supervised_loss
 from .targets import get_targets
+
+
+def saqe_loss_config(loss_cfg: NesieLossConfig) -> SAQELossConfig:
+    """The SAQE steps' loss settings, as the JAX package's steps make them
+    (``nesie_tpu/train/step.py:38-41``, ``semi.py:161-165``): a plain
+    ``NesieLossConfig`` (what every named ``saqe-*`` config carries) is
+    replaced by ``SAQELossConfig(num_classes=...)``, so its other
+    settings, ``iou_pred_weight=3.0`` of the pretrain configs and any
+    ``loss.*`` override among them, do not reach the SAQE losses. Kept as
+    the JAX package has it (ROADMAP §3)."""
+    if isinstance(loss_cfg, SAQELossConfig):
+        return loss_cfg
+    return SAQELossConfig(num_classes=loss_cfg.num_classes)
 
 
 def make_supervised_train_step(
@@ -23,15 +37,26 @@ def make_supervised_train_step(
     pos_distance_thr: float = 0.3,
     neg_distance_thr: float = 0.6,
     ema_bn_stats: bool = False,
+    head: str = "nesie",
 ):
     """Build the supervised step ``train_step(state, batch, noise=None,
-    generator=None) -> metrics``.
+    generator=None) -> metrics``. ``head="saqe"`` takes the SAQE
+    pretrain losses.
 
     batch: points (B, N, C_in), gt_boxes (B, MAX_GT, 7) bottom-centered,
     gt_labels (B, MAX_GT), gt_valid (B, MAX_GT) bool, and optionally
     ``aug`` (AugParams, applied on the device to points and boxes).
     noise / generator: the head's jitter noise (see NesieHead.forward).
     """
+    if head == "saqe":
+        saqe_cfg = saqe_loss_config(loss_cfg)
+
+        def sup_loss_fn(out, targets):
+            return saqe_supervised_loss(out, targets, saqe_cfg,
+                                        phase="pretrain")
+    else:
+        def sup_loss_fn(out, targets):
+            return nesie_supervised_loss(out, targets, loss_cfg)
 
     def train_step(state: TrainState, batch: dict, noise=None,
                    generator: torch.Generator | None = None) -> dict:
@@ -47,7 +72,7 @@ def make_supervised_train_step(
             out["aggregated_points"], pos_distance_thr=pos_distance_thr,
             neg_distance_thr=neg_distance_thr,
             gt_per_seed=loss_cfg.gt_per_seed)
-        total, terms = nesie_supervised_loss(out, targets, loss_cfg)
+        total, terms = sup_loss_fn(out, targets)
         grad_norm = apply_gradients(state, total)
         ema_update(state, ema_momentum, ema_warm_up, ema_bn_stats)
         metrics = {k: v.detach() for k, v in terms.items()}

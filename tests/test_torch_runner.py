@@ -340,7 +340,8 @@ def test_resume_continues_at_step_over_steps_per_epoch(trained):
 
 
 @pytest.mark.parametrize("over", [
-    "model.head=saqe", "model.compute_dtype=bfloat16", "teacher_jitter=true",
+    "sample_mod_train=random", "test.sample_mod=spec",
+    "model.compute_dtype=bfloat16", "teacher_jitter=true",
     "test.iou_opt=true", "num_devices=2"])
 def test_missing_options_raise(over):
     cfg = tconfig.apply_overrides(

@@ -178,7 +178,10 @@ def test_port_never_imports_jax():
             "nesie_tpu_torch.data.scannet_meta, nesie_tpu_torch.eval, "
             "nesie_tpu_torch.eval.np_iou, nesie_tpu_torch.eval.indoor_eval, "
             "nesie_tpu_torch.tools.train, nesie_tpu_torch.tools.test, "
-            "nesie_tpu_torch.tools.validation_run; "
+            "nesie_tpu_torch.tools.validation_run, "
+            "nesie_tpu_torch.nn.saqe_head, "
+            "nesie_tpu_torch.nn.quality_estimation, "
+            "nesie_tpu_torch.train.saqe_loss; "
             "bad = sorted(m for m in sys.modules "
             "if m in ('jax', 'flax', 'nesie_tpu') "
             "or m.startswith(('jax.', 'flax.', 'nesie_tpu.'))); "

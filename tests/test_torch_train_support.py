@@ -97,9 +97,10 @@ def j_three_nn(query, source, valid_mask=None, **_):
 
 
 @contextlib.contextmanager
-def jax_float64():
-    """x64 on, the JAX model's neighbour searches on the jnp versions."""
-    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+def jax_float64(x64: bool = True):
+    """x64 on (off with ``x64=False``), the JAX model's neighbour searches
+    on the jnp versions."""
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(x64):
         mp.setattr(jpointnet2, "furthest_point_sample", j_fps)
         mp.setattr(jpointnet2, "ball_query", j_ball_query)
         mp.setattr(jpointnet2, "three_nn", j_three_nn)
