@@ -81,7 +81,25 @@ file; fails without them. In order:
    pretrain then semi from it, one epoch each (``saqe_runner``); the
    test CLI on the student and the teacher at B=32 and one request from
    the checkpoint (``saqe_runner_eval``). Between them, the eval forward
-   under the profiler (busy, idle share) and one scene against the CPU.
+   under the profiler (busy, idle share) and one scene against the CPU;
+9. [options], the head, training and eval options off the shipped
+   configs on the flagship: FPS at the real seed FPS's and SA2-SA4's
+   shapes (32 and 12 rows x {1024 -> 256, 2048 -> 1024, 1024 -> 512,
+   512 -> 256}) and the ball query at ``spec``'s (1024 votes over 1024
+   seeds), identical to ``fps_ref`` / ``ball_query_ref``, beside their
+   bounds; then, counts set to 0 before and read after each path: B=32
+   eval forwards in ``spec``, ``random`` and ``seed`` with the real seed
+   and SA2-SA4 FPS (which must reproduce the default forward's samples),
+   each beside this run's default forward (``options_spec``,
+   ``options_random``, ``options_seed_fps``); ``compute_dtype=
+   "bfloat16"``'s eval forward and semi step beside float32's, with peak
+   memory and the distance of the outputs (``options_bf16``); semi steps
+   with ``teacher_jitter`` and with ``sample_mod_train=spec`` (4 + 8
+   scenes, or the largest smaller count that fits: ``options_train``);
+   the test CLI with ``test.iou_opt=true`` on ``[runner]``'s checkpoint
+   (three-NN exactly 2 x (opt_step + 1) a batch over the forward's 4) and
+   ``evaluate`` with and without it (``options_iou_opt``); a SAQE eval
+   forward under ``spec`` (``options_saqe_spec``).
 
 Prints ``{"kernels": [...]}``, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -186,6 +204,22 @@ SAQE_SEMI_TERMS = tuple(t for t in SAQE_PRETRAIN_TERMS
 # SA1-SA4 and the aggregation, three-NN at FP1, FP2 and the quality grid
 # (one grid for SAQE)
 SAQE_BQ_PER_FORWARD, SAQE_3NN_PER_FORWARD = 5, 3
+# [options]: the head, training and eval options off the shipped configs
+# on the flagship. FPS at the shapes that no default path runs, K1's at
+# B=32 and K2's at the semi step's 12 rows: (what, N, M) over FPS-ordered
+# SA1 samples; the ball query at spec's shape (the 1024 votes over the
+# 1024 seeds); the spec semi step at the reference's 4 + 8 scenes, else
+# the largest of the smaller counts that fits on the card
+OPT_FPS_SHAPES = (("seed FPS", SEEDS, 256), ("SA2", 2048, 1024),
+                  ("SA3", 1024, 512), ("SA4", 512, 256))
+OPT_SPEC_BQ = dict(radius=0.3, k=16)
+OPT_SEMI_SCENES = ((4, 8), (2, 4), (1, 2))
+OPT_STEPS = 3
+OPT_BF16 = dict(atol=5e-2, rtol=5e-2)  # bf16 vs float32 outputs, stated
+# launches of one B=32 forward by option: fps_onchip, ball_query, three_nn
+OPT_PER_FORWARD = {"spec": (1, 5, 4), "random": (1, 5, 4),
+                   "seed, real FPS": (5, 5, 4), "bfloat16": (1, 5, 4)}
+
 # The rate of fp32 operations that are not FMAs: 132 SMs x 128 lanes x
 # the 1.98 GHz boost clock (the data sheet's 67 TFLOP/s counts an FMA as
 # two). sq_dist.cuh forbids contraction, so none of the point kernels can
@@ -1121,6 +1155,381 @@ def saqe_phase(dev, scenes, requests, nesie: dict) -> dict:
     return dict(launches=launches, k4=k4)
 
 
+def options_kernels(dev, scenes) -> dict:
+    """K1 and K2 at the FPS shapes of the real seed and SA2-SA4 FPS, K3 at
+    spec's shape, each identical to its plain version, beside its bound.
+    Returns the entries by kernel and shape."""
+    import torch
+
+    from nesie_tpu_torch.ops import pointops
+    from nesie_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_ref
+    from nesie_tpu_torch.ops.fps import fps_onchip_cuda, fps_onchip_plan, fps_ref
+
+    xyz = torch.from_numpy(np.stack(scenes)).to(dev)
+    centers = pointops.gather_points(
+        xyz, fps_onchip_cuda(xyz, SA1["m"])).contiguous()  # SA1's samples
+    del xyz
+    out = {"fps_onchip": {}, "fps_onchip_small": {}, "ball_query": {}}
+    for what, n, m in OPT_FPS_SHAPES:
+        for b, name in ((B, "fps_onchip"), (SEMI_B, "fps_onchip_small")):
+            x = centers[:b, :n].contiguous()
+            tag = f"{what} B={b} N={n} M={m}"
+            err, k_ms, p_ms = kernel_phase(
+                f"{name} {tag} [options]", lambda: fps_onchip_cuda(x, m),
+                lambda: fps_ref(x, m), reps=10, plain_reps=1)
+            b_ms, b_by = fps_bound(b, n, m)
+            out[name][tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by, plan=fps_onchip_plan(b, n))
+            print(f"[options] {name} {tag}: {k_ms:.4f} ms "
+                  f"({k_ms * 1e3 / (m - 1):.4f} us a step, plan "
+                  f"{out[name][tag]['plan']}), bound {b_ms:.4f} ms "
+                  f"({b_by}), plain {p_ms:.4f} ms")
+    seeds = centers[:, :SEEDS].contiguous()
+    votes = (seeds + 0.05 * torch.randn(
+        seeds.shape, generator=torch.Generator(dev).manual_seed(5),
+        device=dev)).contiguous()
+    r, k = OPT_SPEC_BQ["radius"], OPT_SPEC_BQ["k"]
+    tag = f"spec aggregation B={B} N={SEEDS} M={SEEDS} r={r} K={k}"
+    err, k_ms, p_ms = kernel_phase(
+        f"ball_query {tag} [options]",
+        lambda: ball_query_cuda(seeds, votes, r, k),
+        lambda: ball_query_ref(seeds, votes, r, k))
+    b_ms, b_by = ball_query_bound(ball_query_cuda(seeds, votes, r, k), SEEDS)
+    out["ball_query"][tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by)
+    print(f"[options] ball_query {tag}: {k_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), plain {p_ms:.4f} ms")
+    return out
+
+
+def check_counts(counts: dict, path: str, want: dict) -> None:
+    """Exact launch counts on ``path``; the second references at 0."""
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{path}: {counts[name]} {name} launches "
+                                 f"(want {n})")
+    for name in OFF_PATH:
+        if counts[name] != 0:
+            raise AssertionError(f"{name} was launched on the {path} path")
+
+
+def semi_steps(dev, model, n_labeled: int, n_unlabeled: int, **step_kw):
+    """One warm-up and ``OPT_STEPS`` timed semi steps of ``model`` at
+    ``n_labeled`` + ``n_unlabeled`` scenes x 40000; finite losses and
+    gradients. Returns (median ms, peak GiB, the last metrics)."""
+    import torch
+
+    from nesie_tpu_torch.data.synthetic import semi_batch
+    from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
+    from nesie_tpu_torch.train.state import create_train_state, make_lr_schedule
+
+    state = create_train_state(model, make_lr_schedule(8e-3, 1000),
+                               device=dev)
+    batch = semi_batch(np.random.default_rng(7), n_labeled, n_unlabeled,
+                       N_POINTS, SEMI["max_gt"], SEMI["n_boxes"], dev)
+    ulb = [UlbState.create(SEMI["scans"], 18, device=dev)]
+    step = make_semi_train_step(n_labeled, SEMI["scans"], **step_kw)
+    gen = torch.Generator(dev).manual_seed(2)
+    gen_t = torch.Generator(dev).manual_seed(3)
+
+    def run():
+        ulb[0], metrics = step(state, ulb[0], batch, generator=gen,
+                               teacher_generator=gen_t)
+        return metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = timed_steps(run, OPT_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_finite(metrics, state.model, f"semi step {step_kw}")
+    return float(np.median(times)), peak, metrics
+
+
+def options_phase(dev, scenes, nesie: dict) -> dict:
+    """[options]: the flagship VoteNetNesie with the options of ROADMAP
+    §1.3 on the card. The kernels at their new shapes; then, counts set
+    to 0 before and read after each path: eval forwards at B=32 in
+    ``spec``, ``random`` and ``seed`` with the real seed and SA2-SA4 FPS
+    (``options_spec``, ``options_random``, ``options_seed_fps``); bf16
+    beside float32, an eval forward and a semi step (``options_bf16``);
+    semi steps with ``teacher_jitter`` and with ``sample_mod_train=spec``
+    (``options_train``); the test CLI with ``test.iou_opt=true`` on
+    ``[runner]``'s checkpoint and ``evaluate`` with and without it
+    (``options_iou_opt``); a SAQE eval forward under ``spec``
+    (``options_saqe_spec``). ``nesie``: this run's default numbers, printed
+    beside. Returns the launches by path and the kernel entries by
+    shape."""
+    import gc
+
+    import torch
+
+    from nesie_tpu_torch.config import apply_overrides, get_config
+    from nesie_tpu_torch.data import io
+    from nesie_tpu_torch.data.dataset import ScanNetScenes
+    from nesie_tpu_torch.nn.detector import (
+        VoteNetNesie,
+        init_weights_,
+        init_weights_flax_,
+        randomize_bn_,
+    )
+    from nesie_tpu_torch.ops import _build
+    from nesie_tpu_torch.tools import test as test_cli
+    from nesie_tpu_torch.train import runner
+
+    t_phase = time.perf_counter()
+    kernels = options_kernels(dev, scenes)
+    torch.cuda.empty_cache()
+    launches = {}
+    weights = torch.load(ROOT / "build" / "nesie_tpu_torch" /
+                         "smoke_weights.pth", weights_only=True)
+    points = torch.from_numpy(np.stack(
+        [io.add_height(s) for s in scenes]).astype(np.float32)).to(dev)
+
+    def timed_forwards(net, mode, reps=5):
+        gen = torch.Generator(dev).manual_seed(0)
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
+            out = net(points, mode, generator=gen)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                out = net(points, mode, generator=gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return (float(np.median(times)), times,
+                torch.cuda.max_memory_allocated() / 2**30, out)
+
+    def check_out(out, what, n_prop):
+        for key, shape in (("bbox_preds", (B, n_prop, 7)),
+                           ("obj_scores", (B, n_prop, 2)),
+                           ("iou_scores", (B, n_prop, 18))):
+            v = out[key]
+            if tuple(v.shape) != shape or not torch.isfinite(v).all():
+                raise AssertionError(f"[options] {what} {key}: shape "
+                                     f"{tuple(v.shape)} (want {shape}) or "
+                                     "non-finite values")
+
+    # ---- the eval forwards by sample mode
+    base = VoteNetNesie()
+    base.load_state_dict(weights)
+    base = base.to(dev).eval()
+    real_fps = VoteNetNesie()  # the module fields JAX has for the option
+    for sa in real_fps.backbone.SA_modules:
+        sa.input_fps_ordered = False
+    real_fps.bbox_head.seed_fps_prefix_opt = False
+    real_fps.load_state_dict(weights)
+    real_fps = real_fps.to(dev).eval()
+    outs = {}
+    for path, what, net, mode, n_prop in (
+            ("options_spec", "spec", base, "spec", SEEDS),
+            ("options_random", "random", base, "random", 256),
+            ("options_seed_fps", "seed, real FPS", real_fps, "seed", 256)):
+        _build.reset_launch_counts()
+        # ----- the path: 6 forwards (a warm-up and 5 timed)
+        ms, times, peak, out = timed_forwards(net, mode)
+        launches[path] = _build.launch_counts()
+        # ----- end of the path
+        fps_n, bq_n, nn_n = OPT_PER_FORWARD[what]
+        check_counts(launches[path], path, {"fps_onchip": 6 * fps_n,
+                                            "ball_query": 6 * bq_n,
+                                            "three_nn": 6 * nn_n})
+        check_out(out, what, n_prop)
+        outs[what] = out
+        print(f"[options] launches during {path}: {launches[path]}")
+        print(f"[options] eval forward B={B} x {N_POINTS} x 4, {what}: "
+              f"median {ms:.3f} ms over {len(times)} runs ({times}), peak "
+              f"{peak:.3f} GiB; this run's default forward "
+              f"{nesie['eval_ms']:.3f} ms (ratio "
+              f"{ms / nesie['eval_ms']:.4f})")
+    if outs["spec"]["aggregated_indices"] is not None:
+        raise AssertionError("spec: aggregated_indices should be None")
+    draw = outs["random"]["aggregated_indices"]
+    if not (draw.min() >= 0 and draw.max() < SEEDS):
+        raise AssertionError("random: seed indices out of range")
+    # the real FPS over FPS-ordered inputs is the prefix (FPS prefix
+    # consistency): the same samples and outputs as the default forward
+    with torch.inference_mode():
+        default = base(points)
+    real = outs["seed, real FPS"]
+    arange = torch.arange(256, device=dev, dtype=torch.int32).expand(B, -1)
+    same = (torch.equal(real["seed_indices"], default["seed_indices"])
+            and torch.equal(real["aggregated_indices"], arange))
+    diff = (real["bbox_preds"] - default["bbox_preds"]).abs().max().item()
+    print(f"[options] seed with the real seed and SA2-SA4 FPS: samples "
+          f"equal the prefix ones: {same}; max |bbox diff| against the "
+          f"default forward {diff:.3e}")
+    if not same or diff > 1e-4:
+        raise AssertionError("the real FPS at SA2-SA4 and the seeds did "
+                             "not reproduce the prefix samples")
+    del real_fps, outs, real
+    torch.cuda.empty_cache()
+
+    # ---- bf16 beside float32: the eval forward, then a semi step
+    bf16 = VoteNetNesie(compute_dtype="bfloat16")
+    bf16.load_state_dict(weights)
+    bf16 = bf16.to(dev).eval()
+    f32_ms, f32_times, f32_peak, f32_out = timed_forwards(base, "seed")
+    _build.reset_launch_counts()
+    # ----- the bf16 path: 6 forwards, then the semi steps
+    bf_ms, bf_times, bf_peak, bf_out = timed_forwards(bf16, "seed")
+    fwd_counts = _build.launch_counts()
+    fps_n, bq_n, nn_n = OPT_PER_FORWARD["bfloat16"]
+    check_counts(fwd_counts, "options_bf16 (forwards)",
+                 {"fps_onchip": 6 * fps_n, "ball_query": 6 * bq_n,
+                  "three_nn": 6 * nn_n})
+    check_out(bf_out, "bfloat16", 256)
+    del bf16
+    model = VoteNetNesie(compute_dtype="bfloat16")
+    init_weights_(model, torch.Generator().manual_seed(3))
+    semi_bf = semi_steps(dev, model, SEMI["n_labeled"], SEMI["n_unlabeled"])
+    launches["options_bf16"] = _build.launch_counts()
+    # ----- end of the bf16 path
+    del model
+    torch.cuda.empty_cache()
+    model = VoteNetNesie()
+    init_weights_(model, torch.Generator().manual_seed(3))
+    semi_f32 = semi_steps(dev, model, SEMI["n_labeled"], SEMI["n_unlabeled"])
+    del model
+    torch.cuda.empty_cache()
+    print(f"[options] launches during options_bf16: "
+          f"{launches['options_bf16']}")
+    check_launches(launches["options_bf16"], "options_bf16",
+                   need=EVAL_KERNELS)
+    keys = ("bbox_preds", "obj_scores", "iou_scores")
+    agree = torch.ones(B, 256, dtype=torch.bool, device=dev)
+    dist = {}
+    for key in keys:
+        d = (bf_out[key] - f32_out[key]).abs()
+        dist[key] = d.max().item()
+        agree &= (d <= OPT_BF16["atol"] + OPT_BF16["rtol"]
+                  * f32_out[key].abs()).reshape(B, 256, -1).all(-1)
+    share = agree.float().mean().item()
+    print(f"[options] bf16 eval forward B={B}: median {bf_ms:.3f} ms "
+          f"({bf_times}), peak {bf_peak:.3f} GiB; float32 in the same "
+          f"phase {f32_ms:.3f} ms ({f32_times}), peak {f32_peak:.3f} GiB "
+          f"(bf16 / float32 {bf_ms / f32_ms:.4f})")
+    print(f"[options] bf16 against float32, same weights and batch: max "
+          f"|diff| {dist}; {share:.4f} of proposals agree within atol "
+          f"{OPT_BF16['atol']} + rtol {OPT_BF16['rtol']} (boxes, "
+          "objectness, IoU)")
+    print(f"[options] semi step {SEMI['n_labeled']} + {SEMI['n_unlabeled']} "
+          f"scenes: bf16 median {semi_bf[0]:.3f} ms, peak {semi_bf[1]:.3f} "
+          f"GiB; float32 {semi_f32[0]:.3f} ms, peak {semi_f32[1]:.3f} GiB "
+          f"(bf16 / float32 {semi_bf[0] / semi_f32[0]:.4f}); "
+          f"{OPT_STEPS} steps after a warm-up each")
+    del bf_out, f32_out
+
+    # ---- semi steps: teacher_jitter, then sample_mod_train=spec
+    _build.reset_launch_counts()
+    # ----- the options_train path
+    model = VoteNetNesie()
+    init_weights_(model, torch.Generator().manual_seed(3))
+    tj = semi_steps(dev, model, SEMI["n_labeled"], SEMI["n_unlabeled"],
+                    teacher_jitter=True)
+    del model
+    torch.cuda.empty_cache()
+    spec = None
+    for n_l, n_u in OPT_SEMI_SCENES:
+        model = VoteNetNesie()
+        init_weights_(model, torch.Generator().manual_seed(3))
+        try:
+            spec = (n_l, n_u) + semi_steps(dev, model, n_l, n_u,
+                                           sample_mod="spec")
+        except torch.cuda.OutOfMemoryError:
+            print(f"[options] spec semi step at {n_l} + {n_u} scenes does "
+                  f"not fit on the card (peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB)")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        if spec is not None:
+            break
+    launches["options_train"] = _build.launch_counts()
+    # ----- end of the options_train path
+    if spec is None:
+        raise AssertionError("the spec semi step fits at no scene count")
+    print(f"[options] launches during options_train: "
+          f"{launches['options_train']}")
+    check_launches(launches["options_train"], "options_train")
+    print(f"[options] semi step with teacher_jitter ({SEMI['n_labeled']} + "
+          f"{SEMI['n_unlabeled']} scenes): median {tj[0]:.3f} ms, peak "
+          f"{tj[1]:.3f} GiB, num_pseudo {tj[2]['num_pseudo'].item()}; this "
+          f"run's default semi step "
+          f"{nesie['semi_ms']:.3f} ms, peak {nesie['peak_gib']:.3f} GiB")
+    print(f"[options] semi step with sample_mod_train=spec at {spec[0]} + "
+          f"{spec[1]} scenes (P={SEEDS} proposals): median {spec[2]:.3f} "
+          f"ms, peak {spec[3]:.3f} GiB; terms "
+          f"{ {k: round(v.item(), 6) for k, v in spec[4].items()} }")
+
+    # ---- test-time IoU optimisation on [runner]'s checkpoint
+    data = ROOT / "build" / "runner_smoke" / "data"
+    ckpt = (ROOT / "build" / "runner_smoke" / "work" / RUNNER["semi"]
+            / "checkpoints")
+    over = [*RUNNER_OVER, "test.iou_opt=true"]
+    cfg = apply_overrides(get_config(RUNNER["semi"]), over)
+    plain_cfg = apply_overrides(get_config(RUNNER["semi"]), RUNNER_OVER)
+    val = ScanNetScenes(data, data / cfg.data.val_ann_file)
+    model = runner.build_model(cfg)
+    model.load_state_dict(
+        runner.CheckpointManager(ckpt.parent).load()["model"])
+    model = model.to(dev)
+    _build.reset_launch_counts()
+    # ----- the options_iou_opt path
+    cli = test_cli.main([RUNNER["semi"], str(ckpt), "--data-root", str(data),
+                         "--device", str(dev), "--batch-size",
+                         str(RUNNER["eval_batch"]), "--cfg-options", *over])
+    cli_counts = _build.launch_counts()
+    t0 = time.perf_counter()
+    test_cli.evaluate(cfg, model, val, RUNNER["eval_batch"], 9, dev)
+    opt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    test_cli.evaluate(plain_cfg, model, val, RUNNER["eval_batch"], 9, dev)
+    plain_s = time.perf_counter() - t0
+    launches["options_iou_opt"] = _build.launch_counts()
+    # ----- end of the options_iou_opt path
+    batches = -(-len(val) // RUNNER["eval_batch"])
+    per_batch = 2 * (cfg.test.opt_step + 1)
+    check_counts(cli_counts, "options_iou_opt (the test CLI)",
+                 {"three_nn": batches * (4 + per_batch),
+                  "ball_query": batches * 5, "fps_onchip": batches})
+    if not 0.0 <= cli.get("mAP_0.25", -1.0) <= 1.0:
+        raise AssertionError(f"iou_opt test CLI: mAP_0.25 "
+                             f"{cli.get('mAP_0.25')}")
+    print(f"[options] launches during options_iou_opt: "
+          f"{launches['options_iou_opt']}; the test CLI alone {cli_counts}: "
+          f"three-NN {per_batch} = 2 x (opt_step + 1) a batch over the "
+          f"forward's 4")
+    print(f"[options] test.iou_opt=true on [runner]'s checkpoint, "
+          f"{len(val)} val scenes at B={RUNNER['eval_batch']}: evaluate "
+          f"{len(val) / opt_s:.2f} scenes/s against {len(val) / plain_s:.2f} "
+          f"without (the runner phase's {nesie['eval_scenes_per_s']:.2f}); "
+          f"the CLI's mAP_0.25 {cli['mAP_0.25']:.4f}")
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- one SAQE eval forward under spec
+    saqe = saqe_model()
+    init_weights_flax_(saqe, torch.Generator().manual_seed(0))
+    saqe = saqe.to(dev).eval()
+    _build.reset_launch_counts()
+    # ----- the options_saqe_spec path
+    s_ms, s_times, s_peak, s_out = timed_forwards(saqe, "spec", reps=3)
+    launches["options_saqe_spec"] = _build.launch_counts()
+    # ----- end of the options_saqe_spec path
+    check_counts(launches["options_saqe_spec"], "options_saqe_spec",
+                 {"fps_onchip": 4, "ball_query": 4 * SAQE_BQ_PER_FORWARD,
+                  "three_nn": 4 * SAQE_3NN_PER_FORWARD})
+    check_out(s_out, "SAQE spec", SEEDS)
+    if not torch.isfinite(s_out["R_obj_scores"]).all():
+        raise AssertionError("SAQE spec: non-finite R_obj_scores")
+    print(f"[options] SAQE eval forward B={B} under spec: median "
+          f"{s_ms:.3f} ms ({s_times}), peak {s_peak:.3f} GiB")
+    del saqe, s_out, base, points
+    torch.cuda.empty_cache()
+    print(f"[options] phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=launches, kernels=kernels)
+
+
 def make_scene_points(i: int, n: int):
     """Room ``i`` of the SUN RGB-D forward's batch, ``n`` points."""
     from nesie_tpu_torch.data.synthetic import make_scene
@@ -1442,13 +1851,21 @@ def main() -> int:
 
     # ---- 7. the runner and the CLIs -----------------------------------
     torch.cuda.empty_cache()
-    launches.update(runner_phase(dev, bare)["launches"])
+    runner_out = runner_phase(dev, bare)
+    launches.update(runner_out["launches"])
 
     # ---- 8. the SAQE family -------------------------------------------
     torch.cuda.empty_cache()
     saqe = saqe_phase(dev, scenes, requests, dict(eval_ms=ms, **bare))
     launches.update(saqe["launches"])
     k4_ms.update(saqe["k4"])
+
+    # ---- 9. the head, training and eval options -------------------------
+    torch.cuda.empty_cache()
+    options = options_phase(dev, scenes, dict(
+        eval_ms=ms, eval_scenes_per_s=runner_out["eval_scenes_per_s"],
+        **bare))
+    launches.update(options["launches"])
 
     sources = {
         "fps_onchip": ("nesie_tpu_torch/csrc/fps_onchip.cu",
@@ -1491,6 +1908,8 @@ def main() -> int:
             entry["by_shape"] = bq_ms
         if name == "three_nn":
             entry["by_shape"] = k4_ms
+        if name in options["kernels"]:
+            entry["options_by_shape"] = options["kernels"][name]
         kernels.append(entry)
     for entry in lab_entries:
         by_path = {path: n["fps_variant"] for path, n in launches.items()}

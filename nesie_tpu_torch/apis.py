@@ -29,11 +29,16 @@ from nesie_tpu_torch.nn.detector import (
 
 
 class Detector:
+    """Serves one model. ``cfg.sample_mod="random"`` draws its seed
+    indices from the detector's generator (on ``device``, seeded with
+    ``cfg.seed``), one draw a request."""
+
     def __init__(self, model: VoteNetNesie, cfg: InferenceConfig,
                  device: torch.device):
         self.model = model
         self.cfg = cfg
         self.device = torch.device(device)
+        self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
 
     @torch.inference_mode()
     def __call__(self, points) -> dict:
@@ -49,7 +54,8 @@ class Detector:
         pts = io.sample_points(pts, self.cfg.num_points, rng)[None]
         pts = torch.from_numpy(np.ascontiguousarray(pts)).to(self.device)
 
-        out = self.model(pts, self.cfg.sample_mod, with_jitter=False)
+        out = self.model(pts, self.cfg.sample_mod, with_jitter=False,
+                         generator=self.generator)
         decoded = decode_and_nms(
             out, pts, nms_thr=self.cfg.nms_thr, score_thr=self.cfg.score_thr,
             use_iou_for_nms=self.cfg.use_iou_for_nms)
@@ -74,7 +80,10 @@ def init_detector(checkpoint=None, checkpoint_dir=None, device="cuda",
     reference-named ``.pth``, or the JAX package's variables as a dict
     with ``params`` and ``batch_stats``.
     model_kwargs: VoteNetNesie overrides of the keyword form (the defaults
-    are the flagship; ``head="saqe"`` for SAQE).
+    are the flagship; ``head="saqe"`` for SAQE, ``compute_dtype=
+    "bfloat16"`` for the bf16 backbone, which loads the same float32
+    weights). The config form takes ``test.sample_mod`` and
+    ``model.compute_dtype`` from the config and ``cfg_options``.
     """
     if isinstance(checkpoint, str) and _is_config_name(checkpoint):
         return _detector_from_config(checkpoint, checkpoint_dir, device,

@@ -96,8 +96,8 @@ class ExperimentConfig:
     test: TestConfig = field(default_factory=TestConfig)
     sample_mod_train: str = "vote"
     # True runs the semi teacher on the jittered 2P proposal set as the
-    # reference does; the port has only the default (no jitter half), and
-    # the runner refuses True.
+    # reference does (its quality module's train-mode BN statistics then
+    # cover 2P rows); the default skips the jitter half.
     teacher_jitter: bool = False
     ema_momentum: float = 1e-3
     ema_warm_up: float = 10.0

@@ -7,6 +7,11 @@ tree alone, onto the port's ``state_dict``. The port's
 names are the reference's, so ``nesie_tpu.convert_torch.convert_state_dict``
 maps the port's ``state_dict()`` back: the two are inverses.
 
+The mapping follows the tree, so it carries any output width (a quality
+module with ``iou_class_depend=False``), and a model with
+``compute_dtype="bfloat16"`` loads the same float32 state_dict (its
+parameters stay float32).
+
 A flax Dense kernel is ``(in, out)``; an ``nn.Linear`` weight is
 ``(out, in)``. A reference ``.pth`` stores 1x1 convolutions as
 ``(out, in, 1[, 1])``; ``load_reference_state_dict`` drops the unit dims.

@@ -17,7 +17,8 @@ class VoteNetNesie(nn.Module):
     """Backbone + head forward, returning the head's results dict. The
     defaults are the flagship ScanNet model. ``head="nesie"`` is the
     ICCV'23 NesieHead, ``head="saqe"`` the journal SAQEHead (the
-    reference's VoteNetSAQE; ``sizes`` unused)."""
+    reference's VoteNetSAQE; ``sizes`` unused). ``compute_dtype=
+    "bfloat16"`` runs the backbone's MLPs in bf16 (float32 parameters)."""
 
     def __init__(
         self,
@@ -37,11 +38,17 @@ class VoteNetNesie(nn.Module):
         jitter_scale: float = 0.3,
         jitter_size_bias: float = 0.0,
         head: str = "nesie",
+        compute_dtype: str | None = None,
     ):
         super().__init__()
+        if compute_dtype not in (None, "bfloat16"):
+            raise ValueError(f"compute_dtype={compute_dtype!r}: None or "
+                             "'bfloat16'")
         seed_feat_dim = fp_channels[-1][-1]
-        self.backbone = PointNet2SASSG(in_channels, num_points, radii,
-                                       num_samples, sa_channels, fp_channels)
+        self.backbone = PointNet2SASSG(
+            in_channels, num_points, radii, num_samples, sa_channels,
+            fp_channels, compute_dtype=(torch.bfloat16 if compute_dtype
+                                        else None))
         common = dict(
             num_classes=num_classes, reg_max=reg_max,
             num_proposal=num_proposal, seed_feat_dim=seed_feat_dim,
@@ -55,11 +62,26 @@ class VoteNetNesie(nn.Module):
 
     def forward(self, points: torch.Tensor, sample_mod: str = "seed",
                 with_jitter: bool = False, noise=None,
-                generator: torch.Generator | None = None) -> dict:
-        """points: (B, N, in_channels). ``noise`` / ``generator``: the
-        jitter noise, see ``NesieHead.forward``."""
+                generator: torch.Generator | None = None,
+                sample_indices: torch.Tensor | None = None) -> dict:
+        """points: (B, N, in_channels). ``noise`` / ``generator`` /
+        ``sample_indices``: the head's draws, see ``NesieHead.forward``."""
         return self.bbox_head(self.backbone(points), sample_mod, with_jitter,
-                              noise=noise, generator=generator)
+                              noise=noise, generator=generator,
+                              sample_indices=sample_indices)
+
+    def quality_scores(self, results: dict, center, size, heading):
+        """Re-run only the quality module on explicit boxes (reference
+        forward_onlyiou_faster, nesie_head.py:790): center, size (B, P, 3),
+        heading (B, P) -> the sigmoid IoU score at each proposal's
+        semantic argmax (B, P). The quality module must be in eval mode
+        (running-statistics BN), as the caller's model is at test time."""
+        out = self.bbox_head.grid_conv(
+            center, size, heading, results["seed_points"],
+            results["seed_features"], results["bbox_probs"])
+        iou = torch.sigmoid(out[1])  # (side, iou, ...) for both heads
+        sem_argmax = results["sem_scores"].argmax(-1, keepdim=True)
+        return iou.gather(-1, sem_argmax)[..., 0]
 
 
 @torch.no_grad()

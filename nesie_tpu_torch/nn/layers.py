@@ -13,6 +13,13 @@ updates the running statistics with that same biased variance as
 ``0.9 * old + 0.1 * batch``; ``torch.nn.BatchNorm1d`` would update with the
 unbiased variance. ``frozen_bn_stats`` gives the teacher's mode: batch
 statistics, running statistics left as they are.
+
+``dtype=torch.bfloat16`` (the JAX package's ``PointMLP(dtype=)``, the
+backbone's ``compute_dtype``): parameters stay float32 and each Linear is
+computed in bf16 on bf16 copies of its input and weights; BN takes its
+statistics and normalises in float32, as flax does, and hands bf16 on to
+the ReLU; the stack returns float32. Explicit casts, not
+``torch.autocast``, whose rules differ from flax's.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from collections import OrderedDict
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_MOMENTUM = 0.9  # flax: new = momentum * old + (1 - momentum) * batch
@@ -35,9 +43,15 @@ class BatchNorm(nn.BatchNorm1d):
         self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalises in at least float32 (statistics too) and returns
+        ``x``'s dtype."""
         flat = x.reshape(-1, x.shape[-1])
         if not self.training:
+            # torch's batch norm takes a bf16 input beside float32
+            # statistics and affine, normalises in float32 and returns
+            # bf16: flax's semantics, without a float32 copy of the input
             return super().forward(flat).reshape(x.shape)
+        flat = flat.to(torch.promote_types(flat.dtype, torch.float32))
         mean = flat.mean(dim=0)
         var = torch.clamp((flat * flat).mean(dim=0) - mean * mean, min=0.0)
         if self.update_stats:
@@ -48,7 +62,7 @@ class BatchNorm(nn.BatchNorm1d):
                     (1.0 - BN_MOMENTUM) * var)
                 self.num_batches_tracked.add_(1)
         y = (flat - mean) * (torch.rsqrt(var + self.eps) * self.weight)
-        return (y + self.bias).reshape(x.shape)
+        return (y + self.bias).reshape(x.shape).to(x.dtype)
 
 
 @contextlib.contextmanager
@@ -68,30 +82,45 @@ def frozen_bn_stats(model: nn.Module):
 
 
 class ConvModule(nn.Module):
-    """Linear (the reference's 1x1 conv) -> BN -> ReLU."""
+    """Linear (the reference's 1x1 conv) -> BN -> ReLU; the Linear in
+    ``dtype`` when it is set (returning ``dtype``)."""
 
-    def __init__(self, cin: int, cout: int, bias: bool = False):
+    def __init__(self, cin: int, cout: int, bias: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.conv = nn.Linear(cin, cout, bias=bias)
         self.bn = BatchNorm(cout)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(self.conv(x)))
+        if self.dtype is None:
+            return torch.relu(self.bn(self.conv(x)))
+        bias = self.conv.bias
+        h = F.linear(x.to(self.dtype), self.conv.weight.to(self.dtype),
+                     None if bias is None else bias.to(self.dtype))
+        return torch.relu(self.bn(h))
 
 
 class PointMLP(nn.Sequential):
     """A stack of ConvModules (``PointMLP`` with ``final_activation=True``
     and BN in the JAX package). ``name`` formats each layer's name:
     ``"layer{}"`` for the backbone and head stacks, ``"{}"`` for the vote
-    module's ``vote_conv``."""
+    module's ``vote_conv``. ``dtype``: the Linears' compute dtype; the
+    stack returns float32."""
 
     def __init__(self, cin: int, channels: Sequence[int], bias: bool = False,
-                 name: str = "layer{}"):
+                 name: str = "layer{}", dtype: torch.dtype | None = None):
         layers = OrderedDict()
         for j, c in enumerate(channels):
-            layers[name.format(j)] = ConvModule(cin, c, bias=bias)
+            layers[name.format(j)] = ConvModule(cin, c, bias=bias,
+                                                dtype=dtype)
             cin = c
         super().__init__(layers)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = super().forward(x)
+        return out if self.dtype is None else out.float()
 
 
 class MiniPointNet(nn.Module):

@@ -1,11 +1,9 @@
 """NesieHead: per-side distribution box regression + quality estimation.
 
 Counterpart of ``nesie_tpu/nn/nesie_head.py``: vote -> aggregate (SA
-module; ``sample_mod="seed"`` samples the FPS-ordered seeds by prefix,
-``"vote"`` runs FPS on the votes) -> shared conv head -> integral side
-decode (``side2box``) -> jittered proposal copies (``with_jitter``) ->
-SidePooling quality module. The ``random`` and ``spec`` sample modes are
-not ported yet, and the head raises on them.
+module, by ``sample_mod``) -> shared conv head -> integral side decode
+(``side2box``) -> jittered proposal copies (``with_jitter``) ->
+SidePooling quality module.
 """
 from __future__ import annotations
 
@@ -14,12 +12,13 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from nesie_tpu_torch.ops import furthest_point_sample
 from .heads import ReliableConvBboxHead, integral_expectation
 from .pointnet2 import PointSAModule
 from .side_pooling import SidePooling
 from .vote import VoteModule
 
-SUPPORTED_SAMPLE_MODS = ("seed", "vote")
+SAMPLE_MODS = ("vote", "seed", "random", "spec")
 
 
 def side2box(aggregated_points, side_offsets, heading_pred, sizes):
@@ -68,20 +67,49 @@ def jitter_boxes(bbox_pred, noise, noise_scale: float = 0.3,
     return torch.cat([center_j, size_j, bbox_pred[..., 6:7]], dim=-1)
 
 
+def random_sample_indices(shape, num_seed: int, generator: torch.Generator,
+                          device: torch.device) -> torch.Tensor:
+    """``sample_mod="random"``'s draw: (B, P) int32 seed indices uniform
+    in [0, num_seed), from ``generator`` (on the generator's device, then
+    moved to ``device``)."""
+    idx = torch.randint(0, num_seed, shape, generator=generator,
+                        device=generator.device, dtype=torch.int32)
+    return idx.to(device)
+
+
 class ProposalHead(nn.Module):
     """The forward steps NesieHead and SAQEHead share: vote, aggregate
     (``sample_mod``), and the detached (and jittered) proposal boxes that
     the quality module scores. A subclass sets ``vote_module``,
-    ``vote_aggregation``, ``num_proposal``, ``dataset_name`` and the
-    jitter's ``jitter_scale`` and ``jitter_size_bias``."""
+    ``vote_aggregation``, ``num_proposal``, ``dataset_name``,
+    ``seed_fps_prefix_opt`` and the jitter's ``jitter_scale`` and
+    ``jitter_size_bias``.
 
-    def _aggregate(self, feat_dict: dict, sample_mod: str):
+    Sample modes: ``vote`` runs FPS over the votes; ``seed`` takes the
+    seeds' FPS (an ``arange`` by prefix consistency, or the real FPS with
+    ``seed_fps_prefix_opt=False``); ``random`` draws seed indices
+    (``sample_indices``, or from the generator); each of these aggregates
+    the votes around the sampled votes. ``spec`` aggregates the seeds
+    around every vote, so P is the seed count."""
+
+    @staticmethod
+    def _check(sample_mod: str, with_jitter: bool, noise, generator,
+               sample_indices) -> None:
+        if sample_mod not in SAMPLE_MODS:
+            raise ValueError(f"sample_mod={sample_mod!r}: not one of "
+                             f"{SAMPLE_MODS}")
+        if with_jitter and noise is None and generator is None:
+            raise ValueError("with_jitter needs noise or a generator")
+        if (sample_mod == "random" and sample_indices is None
+                and generator is None):
+            raise ValueError("sample_mod='random' needs sample_indices or "
+                             "a generator")
+
+    def _aggregate(self, feat_dict: dict, sample_mod: str,
+                   generator: torch.Generator | None = None,
+                   sample_indices: torch.Tensor | None = None):
         """Returns the results dict (seed, vote and aggregated tensors) and
         the aggregated features."""
-        if sample_mod not in SUPPORTED_SAMPLE_MODS:
-            raise NotImplementedError(
-                f"sample_mod={sample_mod!r} is not ported (ROADMAP §1.3); "
-                f"the port supports {SUPPORTED_SAMPLE_MODS}")
         seed_points = feat_dict["fp_xyz"][-1]
         seed_features = feat_dict["fp_features"][-1]
         vote_points, vote_features, vote_offset = self.vote_module(
@@ -95,18 +123,30 @@ class ProposalHead(nn.Module):
             vote_offset=vote_offset,
         )
 
-        B = seed_points.shape[0]
-        if sample_mod == "vote":  # FPS over the votes
-            sample_indices = None
+        B, num_seed = seed_points.shape[:2]
+        if sample_mod == "spec":
+            agg = self.vote_aggregation(seed_points, seed_features,
+                                        target_xyz=vote_points)
         else:
-            # seeds are the FPS-ordered SA2 points: by FPS prefix
-            # consistency the head's seed FPS is an arange
-            sample_indices = torch.arange(
-                self.num_proposal, dtype=torch.int32,
-                device=seed_points.device).expand(B, -1)
-        aggregated_points, features, aggregated_indices = \
-            self.vote_aggregation(vote_points, vote_features,
-                                  indices=sample_indices)
+            if sample_mod == "vote":  # FPS over the votes
+                sample_indices = None
+            elif sample_mod == "seed":
+                if self.seed_fps_prefix_opt:
+                    # seeds are the FPS-ordered SA2 points: by FPS prefix
+                    # consistency the head's seed FPS is an arange
+                    sample_indices = torch.arange(
+                        self.num_proposal, dtype=torch.int32,
+                        device=seed_points.device).expand(B, -1)
+                else:
+                    sample_indices = furthest_point_sample(
+                        seed_points, self.num_proposal)
+            elif sample_indices is None:  # random
+                sample_indices = random_sample_indices(
+                    (B, self.num_proposal), num_seed, generator,
+                    seed_points.device)
+            agg = self.vote_aggregation(vote_points, vote_features,
+                                        indices=sample_indices)
+        aggregated_points, features, aggregated_indices = agg
         results["aggregated_points"] = aggregated_points
         results["aggregated_features"] = features
         results["aggregated_indices"] = aggregated_indices
@@ -158,8 +198,10 @@ class NesieHead(ProposalHead):
         dataset_name: str = "ScanNet",
         jitter_scale: float = 0.3,
         jitter_size_bias: float = 0.0,
+        seed_fps_prefix_opt: bool = True,
     ):
         super().__init__()
+        self.seed_fps_prefix_opt = seed_fps_prefix_opt
         self.jitter_scale = jitter_scale
         self.jitter_size_bias = jitter_size_bias
         self.reg_max = reg_max
@@ -180,14 +222,18 @@ class NesieHead(ProposalHead):
 
     def forward(self, feat_dict: dict, sample_mod: str = "seed",
                 with_jitter: bool = False, noise=None,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                sample_indices: torch.Tensor | None = None) -> dict:
         """``with_jitter`` adds the jittered proposal copies; their noise
         is ``noise`` (two (B, P, 3) tensors) or drawn from ``generator``.
         In train mode the quality module's BN statistics then cover all
-        2P proposals, as in the reference."""
-        if with_jitter and noise is None and generator is None:
-            raise ValueError("with_jitter needs noise or a generator")
-        results, features = self._aggregate(feat_dict, sample_mod)
+        2P proposals, as in the reference. ``sample_mod="random"`` takes
+        ``sample_indices`` (B, P) or draws them from ``generator`` first,
+        before the jitter noise."""
+        self._check(sample_mod, with_jitter, noise, generator,
+                    sample_indices)
+        results, features = self._aggregate(feat_dict, sample_mod,
+                                            generator, sample_indices)
         aggregated_points = results["aggregated_points"]
         B = aggregated_points.shape[0]
 

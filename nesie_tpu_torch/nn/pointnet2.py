@@ -2,7 +2,9 @@
 
 Counterpart of ``nesie_tpu/nn/pointnet2.py`` (PointSAModule,
 PointFPModule, PointNet2SASSG): sample (FPS) -> group (ball query,
-duplicate fill) -> shared MLP -> max-pool, channels-last.
+duplicate fill) -> shared MLP -> max-pool, channels-last. ``dtype`` /
+``compute_dtype``: the shared MLPs' compute dtype (``nn.layers``); the
+neighbour searches always take float32 coordinates.
 """
 from __future__ import annotations
 
@@ -32,29 +34,37 @@ class PointSAModule(nn.Module):
 
     def __init__(self, num_point: int, radius: float, num_sample: int,
                  in_channels: int, mlp_channels: Sequence[int],
-                 input_fps_ordered: bool = False):
+                 input_fps_ordered: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.num_point = num_point
         self.radius = radius
         self.num_sample = num_sample
         self.input_fps_ordered = input_fps_ordered
         # grouped input: relative xyz (3) + features
-        self.mlps = nn.ModuleList([PointMLP(in_channels + 3, mlp_channels)])
+        self.mlps = nn.ModuleList([PointMLP(in_channels + 3, mlp_channels,
+                                            dtype=dtype)])
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None,
-                indices: torch.Tensor | None = None):
-        """xyz (B, N, 3), features (B, N, C) or None, indices (B, M)
-        precomputed samples or None. Returns new_xyz (B, M, 3),
-        new_features (B, M, mlp[-1]), indices (B, M) int32."""
-        if indices is None:
-            if self.input_fps_ordered:
-                B = xyz.shape[0]
-                indices = torch.arange(
-                    self.num_point, dtype=torch.int32, device=xyz.device
-                ).expand(B, -1)
-            else:
-                indices = furthest_point_sample(xyz, self.num_point)
-        new_xyz = gather_points(xyz, indices)
+                indices: torch.Tensor | None = None,
+                target_xyz: torch.Tensor | None = None):
+        """xyz (B, N, 3), features (B, N, C) or None; indices (B, M)
+        precomputed samples (the head's ``seed`` and ``random`` modes) or
+        target_xyz (B, M, 3) explicit centres (``spec``) or neither (FPS).
+        Returns new_xyz (B, M, 3), new_features (B, M, mlp[-1]) and
+        indices (B, M) int32, None with ``target_xyz``."""
+        if target_xyz is not None:
+            new_xyz = target_xyz
+        else:
+            if indices is None:
+                if self.input_fps_ordered:
+                    B = xyz.shape[0]
+                    indices = torch.arange(
+                        self.num_point, dtype=torch.int32, device=xyz.device
+                    ).expand(B, -1)
+                else:
+                    indices = furthest_point_sample(xyz, self.num_point)
+            new_xyz = gather_points(xyz, indices)
 
         idx = ball_query(xyz, new_xyz, self.radius, self.num_sample)
         # relative offsets, normalised by the radius
@@ -72,9 +82,10 @@ class PointSAModule(nn.Module):
 class PointFPModule(nn.Module):
     """Feature propagation: 3-NN inverse-distance interpolation + MLP."""
 
-    def __init__(self, in_channels: int, mlp_channels: Sequence[int]):
+    def __init__(self, in_channels: int, mlp_channels: Sequence[int],
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.mlps = PointMLP(in_channels, mlp_channels)
+        self.mlps = PointMLP(in_channels, mlp_channels, dtype=dtype)
 
     def forward(self, target_xyz, source_xyz, target_feats, source_feats):
         """target_xyz (B, n, 3), source_xyz (B, m, 3), target_feats
@@ -91,7 +102,12 @@ class PointFPModule(nn.Module):
 class PointNet2SASSG(nn.Module):
     """PointNet++ SSG backbone. Returns fp_xyz / fp_features / fp_indices
     (the last entries are the seeds of the vote head) and the sa_*
-    pyramids."""
+    pyramids.
+
+    ``fps_prefix_opt``: SA2-SA4 take their samples as an ``arange``
+    (their inputs are FPS outputs in selection order); False runs the
+    FPS there for real. ``compute_dtype``: the SA and FP MLPs' compute
+    dtype (e.g. ``torch.bfloat16``)."""
 
     def __init__(
         self,
@@ -103,6 +119,8 @@ class PointNet2SASSG(nn.Module):
             (64, 64, 128), (128, 128, 256), (128, 128, 256), (128, 128, 256),
         ),
         fp_channels: Sequence[Sequence[int]] = ((256, 256), (256, 256)),
+        compute_dtype: torch.dtype | None = None,
+        fps_prefix_opt: bool = True,
     ):
         super().__init__()
         self.in_channels = in_channels
@@ -112,14 +130,16 @@ class PointNet2SASSG(nn.Module):
         for i, chans in enumerate(sa_channels):
             self.SA_modules.append(PointSAModule(
                 num_points[i], radii[i], num_samples[i], feat, chans,
-                input_fps_ordered=i > 0))
+                input_fps_ordered=fps_prefix_opt and i > 0,
+                dtype=compute_dtype))
             feat = chans[-1]
             sa_out.append(feat)
         self.FP_modules = nn.ModuleList()
         num_sa = len(sa_channels)
         for i, chans in enumerate(fp_channels):
             skip = sa_out[num_sa - i - 1]
-            self.FP_modules.append(PointFPModule(feat + skip, chans))
+            self.FP_modules.append(PointFPModule(feat + skip, chans,
+                                                 dtype=compute_dtype))
             feat = chans[-1]
 
     def forward(self, points: torch.Tensor) -> dict:

@@ -67,18 +67,16 @@ def _fused_head(cin: int, out: int) -> nn.Sequential:
 
 class QualityEstimation(nn.Module):
     """SAQE's quality module: six side heads and the fused IoU, rotation
-    and R_obj head over the same six side features."""
+    and R_obj head over the same six side features. ``iou_class_depend=
+    False``: one side, IoU and rotation score a box (C = 1 below)."""
 
     def __init__(self, num_classes: int = 18, seed_feat_dim: int = 256,
                  grid_size: int = 3, reg_topk: int = 4, reg_max: int = 32,
                  iou_class_depend: bool = True):
         super().__init__()
-        if not iou_class_depend:
-            raise NotImplementedError(
-                "iou_class_depend=False is not ported (ROADMAP §1.3)")
         self.grid_size = grid_size
         self.reg_topk = reg_topk
-        self.iou_size = num_classes
+        self.iou_size = num_classes if iou_class_depend else 1
         stat = (reg_max + 1) + reg_topk + 1
         self.mlps_before = nn.ModuleList(
             [MiniPointNet(3 + seed_feat_dim, 128, hide_dim=128)

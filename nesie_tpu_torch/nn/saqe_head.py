@@ -77,8 +77,10 @@ class SAQEHead(ProposalHead):
         dataset_name: str = "ScanNet",
         jitter_scale: float = 0.5,
         jitter_size_bias: float = 0.2,
+        seed_fps_prefix_opt: bool = True,
     ):
         super().__init__()
+        self.seed_fps_prefix_opt = seed_fps_prefix_opt
         self.jitter_scale = jitter_scale
         self.jitter_size_bias = jitter_size_bias
         self.reg_max = reg_max
@@ -98,11 +100,13 @@ class SAQEHead(ProposalHead):
 
     def forward(self, feat_dict: dict, sample_mod: str = "seed",
                 with_jitter: bool = False, noise=None,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                sample_indices: torch.Tensor | None = None) -> dict:
         """As ``NesieHead.forward``."""
-        if with_jitter and noise is None and generator is None:
-            raise ValueError("with_jitter needs noise or a generator")
-        results, features = self._aggregate(feat_dict, sample_mod)
+        self._check(sample_mod, with_jitter, noise, generator,
+                    sample_indices)
+        results, features = self._aggregate(feat_dict, sample_mod,
+                                            generator, sample_indices)
 
         cls_pred, reg_pred = self.conv_pred(features)
         results["obj_scores"] = cls_pred[..., :2]

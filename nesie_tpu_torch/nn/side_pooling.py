@@ -68,26 +68,29 @@ def _head(cin: int, out: int) -> nn.Sequential:
 class SidePooling(nn.Module):
     """Quality module: 6 side heads + 1 box IoU head. ``mlps_before``
     holds the six face MiniPointNets then the box one; ``mlps_head`` the
-    six side heads then the IoU head."""
+    six side heads then the IoU head. ``iou_class_depend=False`` gives
+    every head one output in place of one a class."""
 
     def __init__(self, num_classes: int = 18, seed_feat_dim: int = 256,
-                 grid_size: int = 4, reg_topk: int = 4, reg_max: int = 32):
+                 grid_size: int = 4, reg_topk: int = 4, reg_max: int = 32,
+                 iou_class_depend: bool = True):
         super().__init__()
         self.grid_size = grid_size
         self.reg_topk = reg_topk
+        iou_size = num_classes if iou_class_depend else 1
         stat = (reg_max + 1) + reg_topk + 1
         self.mlps_before = nn.ModuleList(
             [MiniPointNet(3 + seed_feat_dim, 128) for _ in range(7)])
         self.mlps_head = nn.ModuleList(
-            [_head(128 + stat, num_classes) for _ in range(6)]
-            + [_head(128, num_classes)])
+            [_head(128 + stat, iou_size) for _ in range(6)]
+            + [_head(128, iou_size)])
 
     def forward(self, center, size, heading, seed_xyz, seed_feats,
                 bbox_probs):
         """center/size (B, K2, 3), heading (B, K2), seed_xyz (B, N, 3),
         seed_feats (B, N, C), bbox_probs (B, P, 6, reg_max+1) with K2 a
-        multiple of P. Returns raw side_scores (B, K2, 6, num_classes)
-        and iou_scores (B, K2, num_classes)."""
+        multiple of P. Returns raw side_scores (B, K2, 6, iou_size)
+        and iou_scores (B, K2, iou_size), iou_size num_classes or 1."""
         K2, P = size.shape[1], bbox_probs.shape[1]
         g = self.grid_size
         bbox_grid, side_grid = make_box_grids(center, size, heading, g)

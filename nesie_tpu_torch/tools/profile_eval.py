@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the batched eval forward goes, on one card.
 
-    python3 -m nesie_tpu_torch.tools.profile_eval [--runs 3] [--head saqe]
+    python3 -m nesie_tpu_torch.tools.profile_eval [--runs 3] [--head saqe] \
+        [--sample-mod seed|vote|random|spec] [--compute-dtype bfloat16]
 
 Needs one CUDA card and nvcc. Builds the flagship VoteNetNesie (seeded
 random weights, BN running statistics randomised, eval mode; with
-``--head saqe`` the flagship SAQE model of the shipped configs) and the
-batch of ``chip_smoke.py``'s eval path (B=32 synthetic rooms x 40000 x 4),
-runs two warm-up forwards, then ``--runs`` forwards under
+``--head saqe`` the flagship SAQE model of the shipped configs; with
+``--compute-dtype bfloat16`` its backbone MLPs in bf16) and the batch of
+``chip_smoke.py``'s eval path (B=32 synthetic rooms x 40000 x 4), runs
+two warm-up forwards in ``--sample-mod`` (default ``seed``; ``random``
+draws from a seeded generator), then ``--runs`` forwards under
 ``torch.profiler`` (CPU and CUDA activities). Prints the wall time per
 forward, the device's busy time (the sum of the kernels' device time, one
 stream) and idle share, the kernels grouped by kind (the groups of
@@ -29,7 +32,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import nesie_tpu_torch.nn.pointnet2 as pn2
-from nesie_tpu_torch.config import get_config
+from nesie_tpu_torch.config import apply_overrides, get_config
 from nesie_tpu_torch.data import io
 from nesie_tpu_torch.data.synthetic import make_scene
 from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_, randomize_bn_
@@ -39,11 +42,13 @@ from nesie_tpu_torch.train.runner import build_model
 B, N_POINTS = 32, 40000
 
 
-def profile_forward(model, points, runs: int = 3) -> dict:
-    """Two warm-up forwards of ``model`` on ``points``, then ``runs``
-    under ``torch.profiler``: wall ms a forward, device busy ms, idle
-    share, device ms by kernel group and by kernel, and the ball queries
-    by shape."""
+def profile_forward(model, points, runs: int = 3, sample_mod: str = "seed",
+                    generator: torch.Generator | None = None) -> dict:
+    """Two warm-up forwards of ``model`` on ``points`` in ``sample_mod``
+    (``generator``: ``random``'s draws), then ``runs`` under
+    ``torch.profiler``: wall ms a forward, device busy ms, idle share,
+    device ms by kernel group and by kernel, and the ball queries by
+    shape."""
     queries = []  # (B, N, M, K, radius) of each ball query, in call order
     ball_query = pn2.ball_query
 
@@ -54,7 +59,7 @@ def profile_forward(model, points, runs: int = 3) -> dict:
 
     with torch.inference_mode():
         for _ in range(2):
-            model(points)
+            model(points, sample_mod, generator=generator)
         torch.cuda.synchronize()
         pn2.ball_query = recorded
         try:
@@ -62,7 +67,7 @@ def profile_forward(model, points, runs: int = 3) -> dict:
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(runs):
-                    model(points)
+                    model(points, sample_mod, generator=generator)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3 / runs
         finally:
@@ -99,6 +104,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--head", default="nesie", choices=["nesie", "saqe"])
+    ap.add_argument("--sample-mod", default="seed",
+                    choices=["seed", "vote", "random", "spec"])
+    ap.add_argument("--compute-dtype", default=None, choices=["bfloat16"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device", file=sys.stderr)
@@ -108,9 +116,11 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     if args.head == "saqe":
-        model = build_model(get_config("saqe-votenet-scannet-train-050"))
+        cfg = apply_overrides(get_config("saqe-votenet-scannet-train-050"),
+                              [f"model.compute_dtype={args.compute_dtype}"])
+        model = build_model(cfg)
     else:
-        model = VoteNetNesie()
+        model = VoteNetNesie(compute_dtype=args.compute_dtype)
     init_weights_(model, gen)
     randomize_bn_(model, gen)
     model = model.eval().to(dev)
@@ -119,9 +129,12 @@ def main() -> int:
                       for _ in range(B)]).astype(np.float32)
     points = torch.from_numpy(batch).to(dev)
 
-    res = profile_forward(model, points, args.runs)
+    res = profile_forward(model, points, args.runs, args.sample_mod,
+                          torch.Generator(dev).manual_seed(0))
     wall, busy = res["wall_ms"], res["busy_ms"]
-    print(f"eval forward B={B} x {N_POINTS} x 4 ({args.head} head) under "
+    what = (f"{args.head} head, sample_mod {args.sample_mod}, compute dtype "
+            f"{args.compute_dtype or 'float32'}")
+    print(f"eval forward B={B} x {N_POINTS} x 4 ({what}) under "
           f"the profiler: wall {wall:.3f} ms per forward, device busy "
           f"{busy:.3f} ms, idle share {res['idle_share']:.3f}")
     for label, ms in sorted(res["groups"].items(), key=lambda kv: -kv[1]):
@@ -138,7 +151,8 @@ def main() -> int:
                           ball_query={k: dict(launches=n, ms_per_forward=ms)
                                       for k, (n, ms)
                                       in res["ball_query"].items()},
-                          head=args.head,
+                          head=args.head, sample_mod=args.sample_mod,
+                          compute_dtype=args.compute_dtype,
                           device=torch.cuda.get_device_name(0))))
     return 0
 

@@ -40,7 +40,7 @@ GROUPS = (
     ("fps (CUDA, ours)", r"fps_kernel"),
     ("ball_query (CUDA, ours)", r"ball_query"),
     ("three_nn (CUDA, ours)", r"three_nn_kernel"),
-    ("fp32 GEMM (cuBLAS)", r"gemm|sgemm|cutlass|Kernel2|ampere|sm90"),
+    ("GEMM (cuBLAS; fp32, bf16)", r"gemm|sgemm|cutlass|Kernel2|ampere|sm90"),
     ("reductions (BN stats, sums, max)", r"reduce|Reduce"),
     ("gather / scatter / index", r"index|gather|scatter|Index"),
     ("sort / top-k", r"sort|Sort|topk|radix"),

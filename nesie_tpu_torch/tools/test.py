@@ -58,7 +58,9 @@ def class_names(cfg):
 @torch.no_grad()
 def evaluate(cfg, model, ds, batch_size: int = 8, seed: int = 9,
              device="cuda", dump_raw=None) -> dict:
-    """Eval forward (``cfg.test.sample_mod``, no jitter), decode + NMS and
+    """Eval forward (``cfg.test.sample_mod``, no jitter; ``random`` draws
+    from a generator seeded with ``seed``), with ``cfg.test.iou_opt`` the
+    test-time IoU optimisation of the boxes, decode + NMS and
     ``indoor_eval`` over every scene of ``ds``; returns the metrics dict.
 
     Batches hold ``batch_size`` scenes; the tail batch is padded with its
@@ -70,12 +72,14 @@ def evaluate(cfg, model, ds, batch_size: int = 8, seed: int = 9,
     """
     from nesie_tpu_torch.data.dataset import batch_to_device
     from nesie_tpu_torch.eval import decode_and_nms, indoor_eval
+    from nesie_tpu_torch.eval.iou_opt import iou_opt_boxes
     from nesie_tpu_torch.eval.postprocess import expand_per_class
 
     device = torch.device(device)
     cuda = device.type == "cuda"
     model.eval()
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(device).manual_seed(seed)
     n = len(ds)
     gt_annos, dt_annos = [], []
 
@@ -124,7 +128,14 @@ def evaluate(cfg, model, ds, batch_size: int = 8, seed: int = 9,
             pending = loader.submit(load, nxt) if nxt < n else None
             points = batch_to_device({"points": batch["points"]},
                                      device)["points"]
-            out = model(points, cfg.test.sample_mod, with_jitter=False)
+            out = model(points, cfg.test.sample_mod, with_jitter=False,
+                        generator=gen)
+            if cfg.test.iou_opt:
+                # test-time IoU optimisation (reference iou_opt_test,
+                # votenet_nesie.py:501-571)
+                out = iou_opt_boxes(model, out, cfg.test.opt_rate,
+                                    cfg.test.opt_step,
+                                    cfg.model.dataset_name)
             if in_flight is not None:
                 postprocess(*in_flight)
             decoded = decode_and_nms(

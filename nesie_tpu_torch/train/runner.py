@@ -8,8 +8,11 @@ epoch, global batch, scene order (one ``default_rng(seed)`` stream) and
 data stream (``default_rng([seed, 0])``), log interval and checkpoint
 cadence, so that one seed gives the JAX runner's batch sequence.
 
-* The step's random draws (the student's proposal jitter) come from a
-  ``torch.Generator`` on the run's device, seeded with ``cfg.seed``.
+* The step's random draws (the student's proposal jitter and
+  ``random``-mode seed indices) come from a ``torch.Generator`` on the
+  run's device, seeded with ``cfg.seed``; the semi teacher's (its jitter
+  with ``teacher_jitter``, its ``random`` draw) from a second one, seeded
+  with ``cfg.seed + 1``.
 * The host waits for the device only on ``log_interval`` steps and once an
   epoch, for the pseudo-label count the semi loop sums on the device.
 * A ``Prefetcher`` thread builds the next host batch and starts its copy
@@ -19,8 +22,8 @@ cadence, so that one seed gives the JAX runner's batch sequence.
   the semi loop's ``UlbState`` and a ``meta`` dict; the reference's paired
   ``epoch_N.pth`` / ``epoch_N_ema.pth`` files in one.
 
-The port runs on one device. Options it does not have yet raise
-``NotImplementedError`` naming their ROADMAP item (``check_supported``).
+The port runs on one device: ``num_devices`` other than None or 1 raises
+``NotImplementedError`` naming its ROADMAP item (``check_supported``).
 """
 from __future__ import annotations
 
@@ -42,7 +45,6 @@ from nesie_tpu_torch.data.dataset import (
 )
 from nesie_tpu_torch.data.prefetch import Prefetcher
 from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_flax_
-from nesie_tpu_torch.nn.nesie_head import SUPPORTED_SAMPLE_MODS
 from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
 from nesie_tpu_torch.train.state import (
     TrainState,
@@ -58,24 +60,12 @@ MESH_SIZE = 1  # devices a run spans; checkpoints record it
 
 
 def check_supported(cfg: ExperimentConfig) -> None:
-    """Raise ``NotImplementedError`` for every setting the port lacks."""
-    missing = []
-    for key, mode in (("sample_mod_train", cfg.sample_mod_train),
-                      ("test.sample_mod", cfg.test.sample_mod)):
-        if mode not in SUPPORTED_SAMPLE_MODS:
-            missing.append(f"{key}={mode!r} (ROADMAP §1.3)")
-    if cfg.model.compute_dtype is not None:
-        missing.append(f"model.compute_dtype={cfg.model.compute_dtype!r} "
-                       "(ROADMAP §1.3)")
-    if cfg.teacher_jitter:
-        missing.append("teacher_jitter=True (ROADMAP §1.3)")
-    if cfg.test.iou_opt:
-        missing.append("test.iou_opt=True (ROADMAP §1.3)")
+    """Raise ``NotImplementedError`` for a setting the port lacks: more
+    than one device."""
     if cfg.num_devices not in (None, 1):
-        missing.append(f"num_devices={cfg.num_devices} (ROADMAP §1.4, DDP)")
-    if missing:
-        raise NotImplementedError("nesie_tpu_torch does not support "
-                                  + "; ".join(missing) + " yet")
+        raise NotImplementedError(
+            f"nesie_tpu_torch does not support num_devices="
+            f"{cfg.num_devices} (ROADMAP §1.4, DDP) yet")
 
 
 def build_model(cfg: ExperimentConfig) -> VoteNetNesie:
@@ -96,6 +86,7 @@ def build_model(cfg: ExperimentConfig) -> VoteNetNesie:
         jitter_scale=m.jitter_scale,
         jitter_size_bias=m.jitter_size_bias,
         head=m.head,
+        compute_dtype=m.compute_dtype,
     )
 
 
@@ -141,7 +132,7 @@ def _semi_step_fn(cfg: ExperimentConfig, n_labeled: int,
         ema_warm_up=cfg.ema_warm_up, un_label_weight=cfg.un_label_weight,
         pos_distance_thr=cfg.pos_distance_thr,
         neg_distance_thr=cfg.neg_distance_thr, ema_bn_stats=cfg.ema_bn_stats,
-        head=cfg.model.head)
+        head=cfg.model.head, teacher_jitter=cfg.teacher_jitter)
 
 
 class CheckpointManager:
@@ -358,6 +349,7 @@ def train_semi(cfg: ExperimentConfig, dataset: SimiScanNetScenes,
     order_rng = np.random.default_rng(cfg.seed)
     rng = np.random.default_rng([cfg.seed, 0])
     gen = torch.Generator(device).manual_seed(cfg.seed)
+    gen_t = torch.Generator(device).manual_seed(cfg.seed + 1)
     aug_cfg = strong_aug_config(cfg)
 
     def epoch_batches(order):
@@ -385,7 +377,8 @@ def train_semi(cfg: ExperimentConfig, dataset: SimiScanNetScenes,
             for it, batch in enumerate(Prefetcher(epoch_batches(order))):
                 t0 = time.perf_counter()
                 ulb_state, metrics = step_fn(state, ulb_state, batch,
-                                             generator=gen)
+                                             generator=gen,
+                                             teacher_generator=gen_t)
                 ep_pseudo += metrics["num_pseudo"]
                 ep_steps += 1
                 if it % cfg.log_interval == 0:

@@ -109,7 +109,10 @@ def nesie_unsup_loss(results, targets: HeadTargets, pseudo_quality,
 
 
 def _slice(results: dict, start: int, end: int) -> dict:
-    return {k: v[start:end] for k, v in results.items()}
+    """Rows [start, end) of every tensor (``spec``'s aggregated_indices
+    is None and stays None)."""
+    return {k: None if v is None else v[start:end]
+            for k, v in results.items()}
 
 
 def make_semi_train_step(
@@ -125,11 +128,15 @@ def make_semi_train_step(
     neg_distance_thr: float = 0.6,
     ema_bn_stats: bool = False,
     head: str = "nesie",
+    teacher_jitter: bool = False,
 ):
-    """Build ``step(state, ulb_state, batch, noise=None, generator=None)
-    -> (ulb_state, metrics)``; ``state`` is updated in place. The teacher
-    runs without jittered proposals (the JAX package's default,
-    ``teacher_jitter=False``). ``head="saqe"`` takes the SAQE semi-phase
+    """Build ``step(state, ulb_state, batch, noise=None, generator=None,
+    teacher_noise=None, teacher_generator=None) -> (ulb_state, metrics)``;
+    ``state`` is updated in place. The teacher runs without jittered
+    proposals by default (the JAX package's ``teacher_jitter=False``);
+    with ``teacher_jitter`` it scores its P proposals and their jittered
+    copies together, so its train-mode BN statistics cover 2P rows, as
+    the student's do. ``head="saqe"`` takes the SAQE semi-phase
     losses; the pseudo-labels are built as for Nesie, from the teacher's
     ``obj_scores``, as the JAX package builds them (ROADMAP §3).
 
@@ -140,7 +147,10 @@ def make_semi_train_step(
             the labeled prefix (the rest is ignored);
         aug_s, aug_t: AugParams with leading dim B;
         ulb_scan_idx (B,) int64: UlbState rows of the unlabeled slots.
-    noise / generator: the student's jitter noise (NesieHead.forward).
+    noise / generator: the student's draws (jitter noise; the seed
+        indices of ``sample_mod="random"``), see NesieHead.forward;
+    teacher_noise / teacher_generator: the teacher's, from its own
+        generator (the JAX step draws them from its teacher key).
     """
     if head == "saqe":
         saqe_cfg = saqe_loss_config(loss_cfg)
@@ -160,7 +170,8 @@ def make_semi_train_step(
                                     un_label_weight)
 
     def step(state: TrainState, ulb_state: UlbState, batch: dict, noise=None,
-             generator: torch.Generator | None = None):
+             generator: torch.Generator | None = None, teacher_noise=None,
+             teacher_generator: torch.Generator | None = None):
         B = batch["points_raw_s"].shape[0]
         points_s = augment_points(batch["points_raw_s"], batch["aug_s"],
                                   shift_height=True)
@@ -171,7 +182,10 @@ def make_semi_train_step(
         # teacher on the weak view: batch statistics, no stat update
         teacher = state.teacher.train()
         with torch.no_grad(), frozen_bn_stats(teacher):
-            teacher_out = teacher(points_t, sample_mod, with_jitter=False)
+            teacher_out = teacher(points_t, sample_mod,
+                                  with_jitter=teacher_jitter,
+                                  noise=teacher_noise,
+                                  generator=teacher_generator)
         teacher.eval()
 
         acc = classwise_acc(ulb_state.ulb_list, ulb_state.ulb_flag,

@@ -41,7 +41,8 @@ def make_supervised_train_step(
 ):
     """Build the supervised step ``train_step(state, batch, noise=None,
     generator=None) -> metrics``. ``head="saqe"`` takes the SAQE
-    pretrain losses.
+    pretrain losses. ``generator`` also draws ``sample_mod="random"``'s
+    seed indices (before the jitter noise).
 
     batch: points (B, N, C_in), gt_boxes (B, MAX_GT, 7) bottom-centered,
     gt_labels (B, MAX_GT), gt_valid (B, MAX_GT) bool, and optionally
@@ -84,13 +85,16 @@ def make_supervised_train_step(
 
 
 def make_eval_forward(sample_mod: str = "seed", use_teacher: bool = False):
-    """``forward(state, points) -> results``: the student's (or the
-    teacher's) eval forward, running-statistics BN, no jitter."""
+    """``forward(state, points, generator=None) -> results``: the
+    student's (or the teacher's) eval forward, running-statistics BN, no
+    jitter; ``generator`` draws ``random``'s seed indices."""
 
     @torch.no_grad()
-    def forward(state: TrainState, points: torch.Tensor) -> dict:
+    def forward(state: TrainState, points: torch.Tensor,
+                generator: torch.Generator | None = None) -> dict:
         model = state.teacher if use_teacher else state.model
         model.eval()
-        return model(points, sample_mod, with_jitter=False)
+        return model(points, sample_mod, with_jitter=False,
+                     generator=generator)
 
     return forward

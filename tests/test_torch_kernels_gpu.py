@@ -517,3 +517,26 @@ def test_fps_step_split_phases():
     got = split(stamps, steps)
     assert got["push"] is None and got["barrier_or_wait"] is None
     assert got["point_loop"] == 10.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [32, 12])
+@pytest.mark.parametrize("n,m", [(1024, 256), (2048, 1024), (1024, 512),
+                                 (512, 256)])
+def test_fps_option_shapes(cuda, b, n, m):
+    """The real seed FPS's and SA2-SA4's shapes (``seed_fps_prefix_opt``
+    and ``fps_prefix_opt`` off), at the eval batch and the semi step's."""
+    xyz = _uniform((b, n, 3), seed=n + m, scale=4.0).to(cuda)
+    assert torch.equal(fps_onchip_cuda(xyz, m), fps_ref(xyz, m))
+
+
+@pytest.mark.gpu
+def test_ball_query_spec_shape(cuda):
+    """``sample_mod="spec"``'s aggregation: 32 x 1024 votes over the 1024
+    seeds, r=0.3, K=16."""
+    seeds = _uniform((32, 1024, 3), seed=11, scale=3.0).to(cuda)
+    votes = (seeds + 0.05 * torch.randn(
+        seeds.shape, generator=torch.Generator(cuda).manual_seed(1),
+        device=cuda)).contiguous()
+    assert torch.equal(ball_query_cuda(seeds, votes, 0.3, 16),
+                       ball_query_ref(seeds, votes, 0.3, 16))

@@ -251,12 +251,14 @@ def test_nesie_head(weights, pallas_interpret):
 
 
 def test_nesie_head_refuses_unported_modes(weights):
-    """``random`` and ``spec`` are not ported; jittered proposals need
-    their noise or a generator."""
+    """A sample mode that the JAX head lacks is refused; ``random`` needs
+    its indices or a generator, jittered proposals their noise or a
+    generator. (The four modes: tests/test_torch_options.py.)"""
     model, _, _ = weights
-    for mode in ("random", "spec"):
-        with pytest.raises(NotImplementedError):
-            model.bbox_head({}, mode)
+    with pytest.raises(ValueError, match="not one of"):
+        model.bbox_head({}, "fps")
+    with pytest.raises(ValueError, match="sample_indices or a generator"):
+        model.bbox_head({}, "random")
     with pytest.raises(ValueError, match="noise or a generator"):
         model.bbox_head({}, "seed", with_jitter=True)
 

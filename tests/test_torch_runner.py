@@ -16,6 +16,7 @@ package's, on the CPU.
 import dataclasses
 import importlib
 import importlib.util
+import json
 from pathlib import Path
 
 import jax
@@ -127,7 +128,8 @@ class Recorder:
                 state.step += 1
                 return {"loss": torch.zeros(())}
 
-            def semi(state, ulb_state, batch, generator=None):
+            def semi(state, ulb_state, batch, generator=None,
+                     teacher_generator=None):
                 rec.batches.append(_host(batch))
                 state.step += 1
                 return ulb_state, {"loss": torch.zeros(()),
@@ -339,15 +341,78 @@ def test_resume_continues_at_step_over_steps_per_epoch(trained):
     assert epochs == [(2, 6)] and state.step == 6
 
 
-@pytest.mark.parametrize("over", [
-    "sample_mod_train=random", "test.sample_mod=spec",
-    "model.compute_dtype=bfloat16", "teacher_jitter=true",
-    "test.iou_opt=true", "num_devices=2"])
+@pytest.mark.parametrize("over", ["num_devices=2"])
 def test_missing_options_raise(over):
+    """DDP (ROADMAP §1.4) is the one setting the port still lacks."""
     cfg = tconfig.apply_overrides(
         tconfig.get_config("nesie-votenet-scannet-train-010"), [over])
     with pytest.raises(NotImplementedError, match="ROADMAP §1"):
         trunner.build_model(cfg)
+
+
+@pytest.fixture(scope="module")
+def tiny_checkpoint(data_root, tmp_path_factory):
+    """A one-step pretrain checkpoint of MODEL16 written by the train
+    CLI."""
+    work = tmp_path_factory.mktemp("options_work")
+    ttrain.main(["nesie-votenet-scannet-pretrain-010", "--data-root",
+                 str(data_root), "--work-dir", str(work), "--device", "cpu",
+                 "--cfg-options", *_over(MODEL16), "optim.max_epochs=1",
+                 "data.repeat=1", "data.samples_per_step=1"])
+    return work / "nesie-votenet-scannet-pretrain-010" / "checkpoints"
+
+
+# the options of ExperimentConfig that the port once refused, each through
+# the CLI that reads it: a semi step of the train CLI, or the test CLI on
+# a checkpoint
+OPTION_CASES = [
+    ("train", "sample_mod_train=random"),
+    ("train", "sample_mod_train=spec"),
+    ("train", "model.compute_dtype=bfloat16"),
+    ("train", "teacher_jitter=true"),
+    ("test", "test.sample_mod=random"),
+    ("test", "test.sample_mod=spec"),
+    ("test", "model.compute_dtype=bfloat16"),
+    ("test", "test.iou_opt=true"),
+]
+
+
+@pytest.mark.parametrize("cli,over", OPTION_CASES,
+                         ids=[f"{c}-{o}" for c, o in OPTION_CASES])
+def test_supported_options_run(cli, over, data_root, tiny_checkpoint,
+                               tmp_path):
+    """``get_config`` + ``apply_overrides`` with the option builds the
+    model, and the CLI runs it on the CPU at MODEL16: one semi step
+    (finite losses, a moved student) or an evaluation (mAP in [0, 1])."""
+    name = "nesie-votenet-scannet-train-010"
+    cfg = tconfig.apply_overrides(tconfig.get_config(name),
+                                  _over(MODEL16) + [over])
+    model = trunner.build_model(cfg)
+    if over == "model.compute_dtype=bfloat16":
+        conv = model.backbone.SA_modules[0].mlps[0].layer0
+        assert conv.dtype == torch.bfloat16
+    if cli == "train":
+        state = ttrain.main([
+            name, "--data-root", str(data_root), "--work-dir",
+            str(tmp_path), "--device", "cpu", "--cfg-options",
+            *_over(MODEL16), "optim.max_epochs=1", "data.repeat=1",
+            "data.samples_per_step=1", "log_interval=1", over])
+        assert state.step >= 1
+        rows = [json.loads(line) for line in
+                (tmp_path / name / "metrics.jsonl").read_text().splitlines()]
+        assert rows and all(np.isfinite(v) for r in rows
+                            for v in r.values())
+        init = trunner.init_state(cfg, trunner.build_model(cfg), 1, "cpu")
+        moved = [not torch.equal(v, init.model.state_dict()[k])
+                 for k, v in state.model.state_dict().items()
+                 if k.endswith("weight")]
+        assert any(moved)
+        return
+    results = ttest.main([name, str(tiny_checkpoint), "--data-root",
+                          str(data_root), "--device", "cpu", "--batch-size",
+                          "2", "--cfg-options", *_over(MODEL16), over])
+    for k in ("mAP_0.25", "mAR_0.25"):
+        assert 0.0 <= results[k] <= 1.0
 
 
 # ------------------------------------------------------------- eval slice

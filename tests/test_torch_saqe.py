@@ -246,8 +246,15 @@ def test_quality_estimation_train_mode(weights, pallas_interpret):
 
 
 def test_quality_estimation_refuses_iou_class_independent():
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.3"):
-        QualityEstimation(iou_class_depend=False)
+    """``iou_class_depend=False`` is ported: one side, IoU and rotation
+    score a box, R_obj's two logits as before (parity with JAX:
+    tests/test_torch_options.py)."""
+    mod = QualityEstimation(C, SEED_DIM, reg_max=8, iou_class_depend=False)
+    with torch.no_grad():
+        side, iou, rot, r_obj = mod.eval()(*map(_t, _quality_inputs()))
+    assert side.shape == (2, 2 * P, 6, 1)
+    assert iou.shape == rot.shape == (2, 2 * P, 1)
+    assert r_obj.shape == (2, 2 * P, 2)
 
 
 # ---- SAQEHead and the detector ---------------------------------------------
@@ -311,10 +318,14 @@ def test_detector_forward(weights, with_jitter):
 
 
 def test_saqe_head_refuses_unported_modes(weights):
+    """A sample mode that the JAX head lacks is refused; ``random`` needs
+    its indices or a generator. (The four modes:
+    tests/test_torch_options.py.)"""
     _, _, model = weights
-    for mode in ("random", "spec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1.3"):
-            model.bbox_head({}, mode)
+    with pytest.raises(ValueError, match="not one of"):
+        model.bbox_head({}, "fps")
+    with pytest.raises(ValueError, match="sample_indices or a generator"):
+        model.bbox_head({}, "random")
     with pytest.raises(ValueError, match="noise or a generator"):
         model.bbox_head({}, "seed", with_jitter=True)
 

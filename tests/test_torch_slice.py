@@ -177,6 +177,7 @@ def test_port_never_imports_jax():
             "nesie_tpu_torch.data.native_loader, "
             "nesie_tpu_torch.data.scannet_meta, nesie_tpu_torch.eval, "
             "nesie_tpu_torch.eval.np_iou, nesie_tpu_torch.eval.indoor_eval, "
+            "nesie_tpu_torch.eval.iou_opt, "
             "nesie_tpu_torch.tools.train, nesie_tpu_torch.tools.test, "
             "nesie_tpu_torch.tools.validation_run, "
             "nesie_tpu_torch.nn.saqe_head, "

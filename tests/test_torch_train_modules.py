@@ -218,7 +218,10 @@ def test_head_raises_on_unported_modes():
 
     head = NesieHead(num_classes=4, reg_max=4, num_proposal=8,
                      seed_feat_dim=8, vote_conv_channels=(8, 8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not one of"):
+        head({"fp_xyz": [None], "fp_features": [None],
+              "fp_indices": [None]}, "fps")
+    with pytest.raises(ValueError, match="sample_indices or a generator"):
         head({"fp_xyz": [None], "fp_features": [None],
               "fp_indices": [None]}, "random")
     with pytest.raises(ValueError, match="noise or a generator"):
