@@ -99,15 +99,33 @@ file; fails without them. In order:
    the test CLI with ``test.iou_opt=true`` on ``[runner]``'s checkpoint
    (three-NN exactly 2 x (opt_step + 1) a batch over the forward's 4) and
    ``evaluate`` with and without it (``options_iou_opt``); a SAQE eval
-   forward under ``spec`` (``options_saqe_spec``).
+   forward under ``spec`` (``options_saqe_spec``);
+10. [ddp], data parallelism (``nesie_tpu_torch.parallel``): FPS, the ball
+   query and three-NN at the shapes one of two ranks gives them (6, 4
+   and 16 rows), identical to their plain versions, beside their bounds;
+   one process's reference semi step (4 + 8) and supervised step (B=8),
+   then the same steps from the same weights, batch and jitter noise on 2
+   ranks spawned under gloo on this card, 2 + 4 and 4 scenes a rank
+   (path ``ddp_train``; counts set to 0 in each rank before and read
+   after, summed over the ranks): every loss term and the gradient norm
+   within ``DDP_STEP_TOL`` of one process, the ranks' students and
+   teachers bit-identical, ``UlbState`` equal; per-rank step ms, peak GiB
+   and the gradient sum's ms. With two cards or more, the same comparison
+   under NCCL across two cards. The train CLI (semi from ``[runner]``'s
+   pretrain checkpoint, 2 epochs of 2 steps, a checkpoint, a resume)
+   under NCCL at world size 1 and under gloo at 2 ranks (``ddp_runner``);
+   the test CLI at 2 ranks x 16 scenes on ``[runner]``'s semi checkpoint
+   (``ddp_eval``), its metrics against one process at 16 scenes a batch.
 
 Prints ``{"kernels": [...]}``, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -219,6 +237,38 @@ OPT_BF16 = dict(atol=5e-2, rtol=5e-2)  # bf16 vs float32 outputs, stated
 # launches of one B=32 forward by option: fps_onchip, ball_query, three_nn
 OPT_PER_FORWARD = {"spec": (1, 5, 4), "random": (1, 5, 4),
                    "seed, real FPS": (5, 5, 4), "bfloat16": (1, 5, 4)}
+
+# [ddp]: data parallelism on the card. Two ranks share one card under gloo
+# (NCCL refuses two ranks on one GPU): each holds 2 + 4 of the reference
+# semi step's 4 + 8 scenes and 4 of the supervised step's 8; float32 loss
+# terms and the gradient norm against one process within DDP_STEP_TOL (the
+# ranks sum BN statistics in another order). The train CLI at 2 labeled
+# scenes a rank (the global 4 of [runner]); the test CLI at 16 scenes a
+# rank (the 32 val scenes in one global batch). The kernels at the shapes
+# a rank gives them: (what, B, N, M) for FPS, (what, B) for the SA1 ball
+# query, (what, B, queries, sources) for three-NN
+DDP_WORLD = 2
+DDP_TIMEOUT_S = 300  # a rank still running then is killed; the phase fails
+# the 2-rank steps against one process: in float64 (the kernels take
+# float32 copies of the coordinates, as always) to 1e-6; in float32, the
+# training dtype, to 1e-2: the rank-split BN sums round otherwise, and the
+# fast variance E[x^2] - E[x]^2 amplifies that through the layers (the
+# phase prints one process's own distance on the rows in another order)
+DDP_TOL = {"64": dict(atol=1e-8, rtol=1e-6), "32": dict(atol=1e-3, rtol=1e-2)}
+DDP_EVAL_ATOL = 1e-6
+DDP_TIMED = 3
+DDP_DTYPES = ("float32", "float64")
+DDP_EVAL_BATCH = 16
+DDP_RUNNER_OVER = RUNNER_OVER + ["data.samples_per_step=2"]
+DDP_K2_SHAPES = (("semi-step SA1 a rank", 6, N_POINTS, 2048),
+                 ("vote-mode aggregation a rank", 6, SEEDS, 256),
+                 ("supervised SA1 a rank", 4, N_POINTS, 2048),
+                 ("eval SA1 a rank", 16, N_POINTS, 2048))
+DDP_BQ_SHAPES = (("semi-step SA1 a rank", 6), ("supervised SA1 a rank", 4),
+                 ("eval SA1 a rank", 16))
+DDP_K4_SHAPES = (("semi student side grid a rank", 6, 512 * 96, SEEDS),
+                 ("eval side grid a rank", 16, 256 * 96, SEEDS),
+                 ("FP1 a rank", 6, FP1["m"], FP1["n"]))
 
 # The rate of fp32 operations that are not FMAs: 132 SMs x 128 lanes x
 # the 1.98 GHz boost clock (the data sheet's 67 TFLOP/s counts an FMA as
@@ -1530,6 +1580,549 @@ def options_phase(dev, scenes, nesie: dict) -> dict:
     return dict(launches=launches, kernels=kernels)
 
 
+# ------------------------------------------------------------------ [ddp]
+def _ddp_rows(tree, index):
+    """Rows ``index`` of every tensor of a (nested dict of) batch."""
+    if isinstance(tree, dict):
+        return {k: _ddp_rows(v, index) for k, v in tree.items()}
+    return tree[index]
+
+
+def _ddp_to(tree, dev):
+    """A host batch (augmentation records as dicts) on ``dev``, the
+    ``aug*`` entries as ``AugParams``."""
+    from nesie_tpu_torch.data.augment import AugParams
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = AugParams(**{f: a.to(dev) for f, a in v.items()})
+        else:
+            out[k] = v.to(dev)
+    return out
+
+
+def ddp_steps(inputs: dict, dev, timed: int, dtypes=DDP_DTYPES) -> dict:
+    """In each of ``dtypes`` (names): one semi step (``SEMI``'s layout: the rank's
+    labeled rows, then its unlabeled rows) and one supervised step, each
+    from ``inputs``' weights with its jitter noise, on this process's rows
+    of the global batch (all of them without a process group); in float32
+    then ``timed`` more of each, timed, and the gradient sum over the
+    ranks, timed. Returns, by dtype tag ("32", "64"), the first steps'
+    metrics, the ``UlbState`` after the semi step and a digest of the
+    student's and teacher's bits after each first step; the times and
+    peak memory; this process's launch counts."""
+    import hashlib
+
+    import torch
+
+    from nesie_tpu_torch import parallel
+    from nesie_tpu_torch.nn.detector import VoteNetNesie
+    from nesie_tpu_torch.ops import _build
+    from nesie_tpu_torch.train.semi import UlbState, make_semi_train_step
+    from nesie_tpu_torch.train.state import create_train_state, make_lr_schedule
+    from nesie_tpu_torch.train.step import make_supervised_train_step
+
+    n_l, n_u = SEMI["n_labeled"], SEMI["n_unlabeled"]
+    world = parallel.world_size()
+    semi_rows = parallel.part_rows(n_l // world, n_u // world)
+    sup_rows = parallel.part_rows(SUP_B // world)
+
+    def local(x, rows, dtype):
+        x = x if rows is None else _ddp_rows(x, rows.index())
+        if isinstance(x, dict):
+            return {k: local(v, None, dtype) for k, v in x.items()}
+        return x.to(dtype) if x.is_floating_point() else x
+
+    def fresh_state(dtype):
+        model = VoteNetNesie()
+        model.load_state_dict(inputs["state"])
+        return create_train_state(model.to(dtype),
+                                  make_lr_schedule(8e-3, 1000), device=dev)
+
+    def digest(state):
+        h = hashlib.sha256()
+        for t in [*state.model.state_dict().values(),
+                  *state.teacher.state_dict().values()]:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    out = {}
+    _build.reset_launch_counts()
+    # ----- the ddp_train path (in each rank)
+    for name in dtypes:
+        dtype, tag = getattr(torch, name), name[-2:]
+        state = fresh_state(dtype)
+        batch = _ddp_to(local(inputs["semi_batch"], semi_rows, dtype), dev)
+        noise = tuple(local(n, semi_rows, dtype).to(dev)
+                      for n in inputs["semi_noise"])
+        step = make_semi_train_step(n_l // world, SEMI["scans"])
+        ulb = [UlbState.create(SEMI["scans"], 18, device=dev)]
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def semi():
+            ulb[0], m = step(state, ulb[0], batch, noise=noise)
+            return m
+
+        out[f"semi{tag}"] = {k: v.item() for k, v in semi().items()}
+        out[f"ulb{tag}"] = [t.cpu() for t in ulb[0]]
+        out[f"semi{tag}_digest"] = digest(state)
+        if tag == "32":
+            out["semi_ms"] = timed_run(semi)
+            out["semi_peak_gib"] = (torch.cuda.max_memory_allocated(dev)
+                                    / 2**30)
+            grads = [p.grad for p in state.model.parameters()]
+            out["grad_numel"] = sum(g.numel() for g in grads)
+            out["allreduce_ms"] = timed_run(
+                lambda: parallel.all_reduce_sum_(grads))
+            del grads
+        del state, batch, noise
+
+        state = fresh_state(dtype)
+        sup_batch = _ddp_to(local(inputs["sup_batch"], sup_rows, dtype), dev)
+        sup_noise = tuple(local(n, sup_rows, dtype).to(dev)
+                          for n in inputs["sup_noise"])
+        sup = make_supervised_train_step()
+        torch.cuda.reset_peak_memory_stats(dev)
+        metrics = sup(state, sup_batch, noise=sup_noise)
+        out[f"sup{tag}"] = {k: v.item() for k, v in metrics.items()}
+        out[f"sup{tag}_digest"] = digest(state)
+        if tag == "32":
+            out["sup_ms"] = timed_run(
+                lambda: sup(state, sup_batch, noise=sup_noise))
+            out["sup_peak_gib"] = (torch.cuda.max_memory_allocated(dev)
+                                   / 2**30)
+        del state, sup_batch, sup_noise
+        torch.cuda.empty_cache()
+    out["launches"] = _build.launch_counts()
+    # ----- end of the ddp_train path
+    return out
+
+
+def ddp_reordered(inputs: dict) -> dict:
+    """``inputs`` with the rows of each part of both batches (and of their
+    noise) in reverse order: the same sums in another order."""
+    import torch
+
+    n_l, n_u = SEMI["n_labeled"], SEMI["n_unlabeled"]
+    semi = torch.cat([torch.arange(n_l).flip(0),
+                      n_l + torch.arange(n_u).flip(0)])
+    sup = torch.arange(SUP_B).flip(0)
+    return dict(inputs,
+                semi_batch=_ddp_rows(inputs["semi_batch"], semi),
+                semi_noise=[n[semi] for n in inputs["semi_noise"]],
+                sup_batch=_ddp_rows(inputs["sup_batch"], sup),
+                sup_noise=[n[sup] for n in inputs["sup_noise"]])
+
+
+def ddp_step_rank(args) -> dict:
+    """A rank of ``ddp_phase``'s step comparison (spawned): the process
+    group from the launcher's environment, then ``ddp_steps``."""
+    import torch
+
+    from nesie_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = parallel.make_mesh(device=args["device"])
+    inputs = torch.load(args["inputs"], weights_only=True)
+    out = ddp_steps(inputs, mesh.device, args["timed"])
+    out.update(backend=mesh.backend, device=str(mesh.device))
+    return out
+
+
+@contextlib.contextmanager
+def recorded_detections(store: dict):
+    """Within the block, each AP evaluation's detections land in
+    ``store["dt"]``: every scene's box count, and the boxes and scores of
+    all scenes in order."""
+    import importlib
+
+    import torch
+
+    teval = importlib.import_module("nesie_tpu_torch.eval")
+    real = teval.indoor_eval
+
+    def record(gt_annos, dt_annos, **kw):
+        store["dt"] = dict(
+            counts=torch.tensor([len(d["labels"]) for d in dt_annos]),
+            **{k: torch.cat([torch.as_tensor(d[k]) for d in dt_annos])
+               for k in ("boxes", "scores")})
+        return real(gt_annos, dt_annos, **kw)
+
+    teval.indoor_eval = record
+    try:
+        yield store
+    finally:
+        teval.indoor_eval = real
+
+
+def ddp_cli_rank(args) -> dict:
+    """A rank of ``ddp_phase``'s CLI runs (spawned): each argument list of
+    ``args["train"]`` through the train CLI (path ``ddp_runner``), then
+    ``args["test"]`` through the test CLI (path ``ddp_eval``). Returns
+    the launch counts of each path, the runs' final steps, and rank 0's
+    metrics and the detections they were computed from."""
+    import torch
+
+    from nesie_tpu_torch import parallel
+    from nesie_tpu_torch.ops import _build
+    from nesie_tpu_torch.tools import test as test_cli
+    from nesie_tpu_torch.tools import train as train_cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = parallel.make_mesh(device=args["device"])
+    out = dict(backend=mesh.backend, steps=[], results=None)
+    _build.reset_launch_counts()
+    # ----- the ddp_runner path (in each rank)
+    t0 = time.perf_counter()
+    for argv in args["train"]:
+        out["steps"].append(int(train_cli.main(argv).step))
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["ddp_runner"] = _build.launch_counts()
+    # ----- end of the ddp_runner path
+    if args.get("test"):
+        _build.reset_launch_counts()
+        # ----- the ddp_eval path (in each rank)
+        t0 = time.perf_counter()
+        with recorded_detections({}) as seen:
+            results = test_cli.main(args["test"])
+        out["eval_s"] = time.perf_counter() - t0
+        out["detections"] = seen.get("dt")
+        out["ddp_eval"] = _build.launch_counts()
+        # ----- end of the ddp_eval path
+        if results is not None:
+            out["results"] = {k: float(v) for k, v in results.items()}
+    return out
+
+
+def ddp_kernels(dev, scenes) -> dict:
+    """K2, K3 and K4 at the shapes one rank of a 2-rank run gives them,
+    each identical to its plain version, beside its bound. Returns the
+    entries by kernel and shape."""
+    import torch
+
+    from nesie_tpu_torch.ops import pointops
+    from nesie_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_ref
+    from nesie_tpu_torch.ops.fps import fps_onchip_cuda, fps_onchip_plan, fps_ref
+    from nesie_tpu_torch.ops.three_nn import three_nn_cuda, three_nn_ref
+
+    b_max = max(b for _, b, _, _ in DDP_K2_SHAPES)
+    xyz = torch.from_numpy(np.stack(scenes[:b_max])).to(dev)
+    centers = pointops.gather_points(
+        xyz, fps_onchip_cuda(xyz, SA1["m"])).contiguous()
+    seeds = centers[:, :SEEDS].contiguous()
+    out = {"fps_onchip_small": {}, "ball_query": {}, "three_nn": {}}
+
+    def record(name, tag, res, b_ms, b_by, **extra):
+        out[name][tag] = dict(max_abs_err=res[0], ms=res[1], plain_ms=res[2],
+                              bound_ms=b_ms, bound_by=b_by, **extra)
+        print(f"[ddp] {name} {tag}: {res[1]:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), plain {res[2]:.4f} ms; identical to the plain "
+              "version")
+
+    for what, b, n, m in DDP_K2_SHAPES:
+        x = (xyz[:b] if n == N_POINTS else
+             (seeds[:b] + 0.05 * torch.randn(
+                 (b, n, 3), generator=torch.Generator(dev).manual_seed(3),
+                 device=dev)).contiguous())
+        x = x.contiguous()
+        tag = f"{what} B={b} N={n} M={m}"
+        res = kernel_phase(f"fps_onchip_small {tag} [ddp]",
+                           lambda: fps_onchip_cuda(x, m),
+                           lambda: fps_ref(x, m), reps=5, plain_reps=1)
+        record("fps_onchip_small", tag, res, *fps_bound(b, n, m),
+               plan=fps_onchip_plan(b, n))
+    for what, b in DDP_BQ_SHAPES:
+        x, c = xyz[:b].contiguous(), centers[:b].contiguous()
+        r, k = SA1["radius"], SA1["k"]
+        tag = f"{what} B={b} N={N_POINTS} M={SA1['m']} r={r} K={k}"
+        res = kernel_phase(f"ball_query {tag} [ddp]",
+                           lambda: ball_query_cuda(x, c, r, k),
+                           lambda: ball_query_ref(x, c, r, k))
+        record("ball_query", tag, res,
+               *ball_query_bound(ball_query_cuda(x, c, r, k), N_POINTS))
+    for what, b, m, n in DDP_K4_SHAPES:
+        if what.startswith("FP1"):
+            q, src = centers[:b, :m].contiguous(), centers[:b, :n].contiguous()
+        else:
+            per_box = 96
+            q = (seeds[:b, :m // per_box, None, :] + torch.rand(
+                (b, m // per_box, per_box, 3),
+                generator=torch.Generator(dev).manual_seed(b), device=dev)
+                - 0.5).reshape(b, m, 3).contiguous()
+            src = seeds[:b]
+        tag = f"{what} B={b} M={m} N={n}"
+        res = kernel_phase(f"three_nn {tag} [ddp]",
+                           lambda: three_nn_cuda(q, src),
+                           lambda: three_nn_ref(q, src))
+        lib_ms = time_ms(
+            lambda: torch.topk(torch.cdist(q, src), 3, largest=False), 5)
+        record("three_nn", tag, res, *three_nn_bound(b, m, n),
+               library_ms=lib_ms)
+    return out
+
+
+def _close(got: float, want: float, tol: dict) -> bool:
+    return abs(got - want) <= tol["atol"] + tol["rtol"] * abs(want)
+
+
+def ddp_compare(ranks: list, one: dict, what: str, control: dict) -> None:
+    """The ranks' first semi and supervised steps against one process's:
+    every loss term and the gradient norm within ``DDP_TOL`` of its dtype,
+    the ranks' students and teachers bit-identical, ``UlbState`` equal in
+    float64. ``control``: one process's float32 steps on the rows in
+    another order, whose distance from ``one`` is printed beside."""
+    import torch
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    for tag in ("64", "32"):
+        for kind in ("semi", "sup"):
+            key, want, tol = f"{kind}{tag}", one[f"{kind}{tag}"], DDP_TOL[tag]
+            worst = 0.0
+            for r, got in enumerate(ranks):
+                if set(got[key]) != set(want):
+                    raise AssertionError(f"{what} {key}: terms "
+                                         f"{sorted(got[key])}, one process "
+                                         f"{sorted(want)}")
+                for k, v in want.items():
+                    worst = max(worst, rel(got[key][k], v))
+                    if not _close(got[key][k], v, tol):
+                        raise AssertionError(
+                            f"{what} {kind} step (float{tag}), rank {r}: "
+                            f"{k} = {got[key][k]!r}, one process {v!r} "
+                            f"(tolerance {tol})")
+            if len({got[f"{key}_digest"] for got in ranks}) != 1:
+                raise AssertionError(f"{what} {key}: the ranks' students "
+                                     "and teachers differ after the step")
+            note = ""
+            if tag == "32":
+                note = (f"; one process on the rows in another order: "
+                        f"{max(rel(control[key][k], v) for k, v in want.items()):.3e}")
+            print(f"[ddp] {what} {kind} step, float{tag}: every loss term "
+                  f"and the gradient norm within atol {tol['atol']} + rtol "
+                  f"{tol['rtol']} of one process (largest relative "
+                  f"difference {worst:.3e}{note}); the ranks' students and "
+                  f"teachers bit-identical after it")
+    for r, got in enumerate(ranks):
+        for a, b in zip(got["ulb64"], one["ulb64"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: rank {r}'s UlbState (float64) "
+                                     "is not the one process's")
+    same32 = all(torch.equal(a, b) for got in ranks
+                 for a, b in zip(got["ulb32"], one["ulb32"]))
+    print(f"[ddp] {what}: UlbState equal to one process's in float64 "
+          f"(float32: {'equal' if same32 else 'differs'}); pseudo-labels "
+          f"{one['semi64']['num_pseudo']} (float64), "
+          f"{one['semi32']['num_pseudo']} (float32)")
+
+
+def ddp_phase(dev, scenes, nesie: dict, smi: str) -> dict:
+    """[ddp]: data parallelism on the card. The kernels at the per-rank
+    shapes; one process's semi (4 + 8) and supervised (B=8) steps; the
+    same steps at 2 ranks under gloo on this card (2 + 4 and 4 a rank;
+    path ``ddp_train``), and under NCCL across 2 cards where the machine
+    has them; the train CLI under NCCL at world size 1 and gloo at world
+    size 2 (semi from ``[runner]``'s pretrain checkpoint, 2 epochs of 2
+    steps, a checkpoint, a resume; path ``ddp_runner``); the test CLI at
+    2 ranks on ``[runner]``'s semi checkpoint against one process
+    (``ddp_eval``). ``nesie``: this run's bare step numbers. Returns the
+    launches by path (summed over the ranks) and the kernel entries."""
+    import shutil
+
+    import torch
+
+    from nesie_tpu_torch.data.synthetic import semi_batch
+    from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_
+    from nesie_tpu_torch.parallel.launch import spawn_ranks
+    from nesie_tpu_torch.tools import test as test_cli
+    from nesie_tpu_torch.train import runner
+
+    t_phase = time.perf_counter()
+    kernels = ddp_kernels(dev, scenes)
+    torch.cuda.empty_cache()
+    base = ROOT / "build" / "ddp_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+
+    # the inputs every process starts from
+    model = VoteNetNesie()
+    init_weights_(model, torch.Generator().manual_seed(5))
+    batch = semi_batch(np.random.default_rng(17), SEMI["n_labeled"],
+                       SEMI["n_unlabeled"], N_POINTS, SEMI["max_gt"],
+                       SEMI["n_boxes"], "cpu")
+    batch = {k: v._asdict() if hasattr(v, "_asdict") else v
+             for k, v in batch.items()}
+    sup_batch = dict(points=batch["points_raw_s"][:SUP_B],
+                     gt_boxes=batch["gt_boxes"][:SUP_B],
+                     gt_labels=batch["gt_labels"][:SUP_B],
+                     gt_valid=batch["gt_valid"][:SUP_B],
+                     aug={f: a[:SUP_B] for f, a in batch["aug_s"].items()})
+    gen = torch.Generator().manual_seed(11)
+    p = model.bbox_head.num_proposal
+    b_semi = SEMI["n_labeled"] + SEMI["n_unlabeled"]
+    inputs = dict(
+        state=model.state_dict(), semi_batch=batch, sup_batch=sup_batch,
+        semi_noise=[torch.randn((b_semi, p, 3), generator=gen)
+                    for _ in range(2)],
+        sup_noise=[torch.randn((SUP_B, p, 3), generator=gen)
+                   for _ in range(2)])
+    torch.save(inputs, base / "inputs.pt")
+
+    one = ddp_steps(inputs, dev, DDP_TIMED)
+    control = ddp_steps(ddp_reordered(inputs), dev, 0, dtypes=("float32",))
+    torch.cuda.empty_cache()
+    step_args = dict(inputs=str(base / "inputs.pt"), timed=DDP_TIMED,
+                     device=DEVICE)
+    # every rank on this process's first card, whatever the machine has
+    one_card = {"CUDA_VISIBLE_DEVICES": os.environ.get(
+        "CUDA_VISIBLE_DEVICES", "0").split(",")[0]}
+    ranks = spawn_ranks(ddp_step_rank, DDP_WORLD, step_args, base / "steps",
+                        DDP_TIMEOUT_S, env=one_card)
+    launches = {"ddp_train": {k: sum(r["launches"][k] for r in ranks)
+                              for k in ranks[0]["launches"]}}
+    print(f"[ddp] launches during ddp_train (both ranks): "
+          f"{launches['ddp_train']}")
+    check_launches(launches["ddp_train"], "ddp_train")
+    if launches["ddp_train"]["fps_onchip"] != 0:
+        raise AssertionError("ddp_train: B > 16 FPS at the per-rank batch")
+    backend = {r["backend"] for r in ranks}
+    ddp_compare(ranks, one, f"{DDP_WORLD} ranks ({'/'.join(backend)}, "
+                            f"one card)", control)
+    for kind, rows in (("semi", f"{SEMI['n_labeled'] // DDP_WORLD} + "
+                                f"{SEMI['n_unlabeled'] // DDP_WORLD}"),
+                       ("sup", str(SUP_B // DDP_WORLD))):
+        per_rank = [float(np.median(r[f"{kind}_ms"])) for r in ranks]
+        print(f"[ddp] {kind} step, {rows} scenes a rank, {DDP_WORLD} ranks "
+              f"sharing one card: median ms by rank {per_rank} (all "
+              f"{[r[f'{kind}_ms'] for r in ranks]}), peak GiB by rank "
+              f"{[round(r[f'{kind}_peak_gib'], 3) for r in ranks]}; one "
+              f"process on the global batch {np.median(one[f'{kind}_ms']):.3f}"
+              f" ms, peak {one[f'{kind}_peak_gib']:.3f} GiB (the training "
+              f"path's bare {nesie[f'{kind}_ms']:.3f} ms); {smi}")
+    print(f"[ddp] gradient sum over the ranks ({ranks[0]['grad_numel']} "
+          f"float32, gloo through the host): ms by rank "
+          f"{[float(np.median(r['allreduce_ms'])) for r in ranks]}; {smi}")
+    cards = torch.cuda.device_count()
+    if cards >= DDP_WORLD:
+        nccl = spawn_ranks(ddp_step_rank, DDP_WORLD, step_args,
+                           base / "steps_nccl", DDP_TIMEOUT_S)
+        ddp_compare(nccl, one, f"{DDP_WORLD} ranks (NCCL, {DDP_WORLD} cards: "
+                               f"{sorted({r['device'] for r in nccl})})",
+                    control)
+        print(f"[ddp] NCCL across cards: semi ms by rank "
+              f"{[float(np.median(r['semi_ms'])) for r in nccl]}, gradient "
+              f"sum ms by rank "
+              f"{[float(np.median(r['allreduce_ms'])) for r in nccl]}")
+    print(f"[ddp] cards used: {min(cards, DDP_WORLD)} of {cards}")
+    del ranks
+    torch.cuda.empty_cache()
+
+    # ----- the CLIs: NCCL at world size 1, gloo at world size 2
+    data = ROOT / "build" / "runner_smoke" / "data"
+    rwork = ROOT / "build" / "runner_smoke" / "work"
+    test_common = [RUNNER["semi"], str(rwork / RUNNER["semi"] / "checkpoints"),
+                   "--data-root", str(data), "--device", DEVICE,
+                   "--batch-size", str(DDP_EVAL_BATCH)]
+    cli = {}
+    for world, over in ((1, RUNNER_OVER),
+                        (DDP_WORLD, DDP_RUNNER_OVER)):
+        work = base / f"work{world}"
+        common = ["--data-root", str(data), "--work-dir", str(work),
+                  "--device", DEVICE, "--num-devices", str(world)]
+        args = dict(device=DEVICE, train=[
+            [RUNNER["semi"], *common, "--load-from",
+             str(rwork / RUNNER["pretrain"] / "checkpoints"),
+             "--cfg-options", *over],
+            [RUNNER["semi"], *common, "--resume", "--cfg-options", *over,
+             "optim.max_epochs=3"]])
+        if world > 1:
+            args["test"] = [*test_common, "--num-devices", str(world),
+                            "--cfg-options", *RUNNER_OVER]
+        cli[world] = spawn_ranks(ddp_cli_rank, world, args,
+                                 base / f"cli{world}", DDP_TIMEOUT_S,
+                                 env=one_card)
+        run = cli[world]
+        ckpt = runner.CheckpointManager(work / RUNNER["semi"]).load()
+        rows = metric_rows(work / RUNNER["semi"])
+        check_rows(rows, f"ddp train CLI at world size {world}")
+        # make_mesh's rule: NCCL when each rank has a card of its own (the
+        # ranks see one card here)
+        backend = "nccl" if DEVICE == "cuda" and world == 1 else "gloo"
+        if ({r["backend"] for r in run} != {backend}
+                or any(r["steps"] != [4, 6] for r in run)
+                or ckpt["step"] != 6 or ckpt["meta"] != {"mesh_size": world}):
+            raise AssertionError(
+                f"ddp train CLI at world size {world}: backends "
+                f"{[r['backend'] for r in run]}, steps "
+                f"{[r['steps'] for r in run]}, checkpoint step "
+                f"{ckpt['step']} meta {ckpt['meta']}")
+        print(f"[ddp] train CLI under {run[0]['backend']} at world size "
+              f"{world}: semi from [runner]'s pretrain, 2 epochs of 2 steps, "
+              f"checkpoint at step 4 (mesh_size {world}), resumed to step 6 "
+              f"in {max(r['train_s'] for r in run):.2f} s; losses "
+              f"{[round(r['loss'], 4) for r in rows]}")
+    launches["ddp_runner"] = {
+        k: sum(r["ddp_runner"][k] for w in cli for r in cli[w])
+        for k in cli[1][0]["ddp_runner"]}
+    launches["ddp_eval"] = {
+        k: sum(r["ddp_eval"][k] for r in cli[DDP_WORLD])
+        for k in cli[DDP_WORLD][0]["ddp_eval"]}
+    print(f"[ddp] launches during ddp_runner (every rank of both runs): "
+          f"{launches['ddp_runner']}; during ddp_eval (both ranks): "
+          f"{launches['ddp_eval']}")
+    check_launches(launches["ddp_runner"], "ddp_runner")
+    check_launches(launches["ddp_eval"], "ddp_eval",
+                   need=("fps_onchip_small", "ball_query", "three_nn"))
+    if launches["ddp_eval"]["fps_onchip"] != 0:
+        raise AssertionError("ddp_eval: B > 16 FPS at 16 scenes a rank")
+
+    # ----- the test CLI at 2 ranks against one process at 16 a batch
+    got = cli[DDP_WORLD][0]["results"]
+    if got is None or any(r["results"] is not None
+                          for r in cli[DDP_WORLD][1:]):
+        raise AssertionError("ddp test CLI: rank 0 alone returns metrics")
+    with recorded_detections({}) as seen:
+        want = test_cli.main([*test_common, "--cfg-options", *RUNNER_OVER])
+    diff = max(abs(got[k] - float(want[k])) for k in want)
+    if got.keys() != want.keys() or diff > DDP_EVAL_ATOL:
+        raise AssertionError(f"ddp test CLI: metrics differ from one "
+                             f"process's by {diff} (keys {sorted(got)})")
+    dt, dt_want = cli[DDP_WORLD][0]["detections"], seen["dt"]
+    if not torch.equal(dt["counts"], dt_want["counts"]):
+        raise AssertionError(f"ddp test CLI: detections a scene "
+                             f"{dt['counts'].tolist()}, one process "
+                             f"{dt_want['counts'].tolist()}")
+    dt_diff = max([(dt[k] - dt_want[k]).abs().max().item()
+                   for k in ("boxes", "scores") if dt[k].numel()] or [0.0])
+    if dt_diff > DDP_EVAL_ATOL:
+        raise AssertionError(f"ddp test CLI: detections differ from one "
+                             f"process's by {dt_diff}")
+    print(f"[ddp] test CLI at {DDP_WORLD} ranks x {DDP_EVAL_BATCH} scenes "
+          f"on [runner]'s checkpoint: {int(dt['counts'].sum())} detections "
+          f"over {len(dt['counts'])} scenes and {len(want)} metrics within "
+          f"{DDP_EVAL_ATOL} of one process at B={DDP_EVAL_BATCH} (largest "
+          f"differences {dt_diff:.3e}, {diff:.3e}); mAP_0.25 "
+          f"{got['mAP_0.25']:.4f}; "
+          f"{max(r['eval_s'] for r in cli[DDP_WORLD]):.2f} s")
+    print(f"[ddp] phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=launches, kernels=kernels)
+
+
 def make_scene_points(i: int, n: int):
     """Room ``i`` of the SUN RGB-D forward's batch, ``n`` points."""
     from nesie_tpu_torch.data.synthetic import make_scene
@@ -1867,6 +2460,11 @@ def main() -> int:
         **bare))
     launches.update(options["launches"])
 
+    # ---- 10. data parallelism ------------------------------------------
+    torch.cuda.empty_cache()
+    ddp = ddp_phase(dev, scenes, bare, smi)
+    launches.update(ddp["launches"])
+
     sources = {
         "fps_onchip": ("nesie_tpu_torch/csrc/fps_onchip.cu",
                        "nesie_tpu/ops/pallas_fps.py:73"),
@@ -1910,6 +2508,8 @@ def main() -> int:
             entry["by_shape"] = k4_ms
         if name in options["kernels"]:
             entry["options_by_shape"] = options["kernels"][name]
+        if name in ddp["kernels"]:
+            entry["ddp_by_shape"] = ddp["kernels"][name]
         kernels.append(entry)
     for entry in lab_entries:
         by_path = {path: n["fps_variant"] for path, n in launches.items()}

@@ -63,12 +63,14 @@ class VoteNetNesie(nn.Module):
     def forward(self, points: torch.Tensor, sample_mod: str = "seed",
                 with_jitter: bool = False, noise=None,
                 generator: torch.Generator | None = None,
-                sample_indices: torch.Tensor | None = None) -> dict:
+                sample_indices: torch.Tensor | None = None,
+                rows=None) -> dict:
         """points: (B, N, in_channels). ``noise`` / ``generator`` /
-        ``sample_indices``: the head's draws, see ``NesieHead.forward``."""
+        ``sample_indices`` / ``rows``: the head's draws, see
+        ``NesieHead.forward``."""
         return self.bbox_head(self.backbone(points), sample_mod, with_jitter,
                               noise=noise, generator=generator,
-                              sample_indices=sample_indices)
+                              sample_indices=sample_indices, rows=rows)
 
     def quality_scores(self, results: dict, center, size, heading):
         """Re-run only the quality module on explicit boxes (reference

@@ -12,7 +12,11 @@ taking flax's fast variance ``max(E[x^2] - E[x]^2, 0)`` (biased), and
 updates the running statistics with that same biased variance as
 ``0.9 * old + 0.1 * batch``; ``torch.nn.BatchNorm1d`` would update with the
 unbiased variance. ``frozen_bn_stats`` gives the teacher's mode: batch
-statistics, running statistics left as they are.
+statistics, running statistics left as they are. Under a launched process
+group (``parallel``) the batch statistics cover every rank's rows, as the
+JAX package's single-program mesh takes them over the global batch; the
+running update is then the same on every rank. ``nn.SyncBatchNorm`` is no
+substitute: it takes Welford's variance and updates with the unbiased one.
 
 ``dtype=torch.bfloat16`` (the JAX package's ``PointMLP(dtype=)``, the
 backbone's ``compute_dtype``): parameters stay float32 and each Linear is
@@ -30,6 +34,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from nesie_tpu_torch import parallel
 
 BN_MOMENTUM = 0.9  # flax: new = momentum * old + (1 - momentum) * batch
 BN_EPS = 1e-5
@@ -52,8 +58,11 @@ class BatchNorm(nn.BatchNorm1d):
             # bf16: flax's semantics, without a float32 copy of the input
             return super().forward(flat).reshape(x.shape)
         flat = flat.to(torch.promote_types(flat.dtype, torch.float32))
-        mean = flat.mean(dim=0)
-        var = torch.clamp((flat * flat).mean(dim=0) - mean * mean, min=0.0)
+        if parallel.active():
+            mean, sq_mean = _global_moments(flat)
+        else:
+            mean, sq_mean = flat.mean(dim=0), (flat * flat).mean(dim=0)
+        var = torch.clamp(sq_mean - mean * mean, min=0.0)
         if self.update_stats:
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(
@@ -63,6 +72,16 @@ class BatchNorm(nn.BatchNorm1d):
                 self.num_batches_tracked.add_(1)
         y = (flat - mean) * (torch.rsqrt(var + self.eps) * self.weight)
         return (y + self.bias).reshape(x.shape).to(x.dtype)
+
+
+def _global_moments(flat: torch.Tensor):
+    """E[x] and E[x^2] over every rank's rows: (sum x, sum x^2, rows) summed
+    over the ranks in one collective, whose backward sums the gradients."""
+    count = flat.new_full((1,), flat.shape[0])
+    sums = parallel.global_sum(torch.cat(
+        [flat.sum(dim=0), (flat * flat).sum(dim=0), count]))
+    c = flat.shape[1]
+    return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
 
 @contextlib.contextmanager

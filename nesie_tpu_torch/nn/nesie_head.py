@@ -12,6 +12,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from nesie_tpu_torch import parallel
 from nesie_tpu_torch.ops import furthest_point_sample
 from .heads import ReliableConvBboxHead, integral_expectation
 from .pointnet2 import PointSAModule
@@ -45,12 +46,17 @@ def side2box(aggregated_points, side_offsets, heading_pred, sizes):
     return surface_pred, scale, bbox_pred
 
 
-def jitter_noise(shape, generator: torch.Generator,
-                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+def jitter_noise(shape, generator: torch.Generator, device: torch.device,
+                 rows: parallel.RowLayout | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The two standard-normal draws of ``jitter_boxes``, from
-    ``generator`` (on the generator's device, then moved to ``device``)."""
-    n1 = torch.randn(shape, generator=generator, device=generator.device)
-    n2 = torch.randn(shape, generator=generator, device=generator.device)
+    ``generator`` (on the generator's device, then moved to ``device``);
+    with ``rows``, this rank's rows of the global batch's draws."""
+    def draw(s):
+        return torch.randn(s, generator=generator, device=generator.device)
+
+    n1 = parallel.draw_rows(rows, draw, shape)
+    n2 = parallel.draw_rows(rows, draw, shape)
     return n1.to(device), n2.to(device)
 
 
@@ -68,13 +74,18 @@ def jitter_boxes(bbox_pred, noise, noise_scale: float = 0.3,
 
 
 def random_sample_indices(shape, num_seed: int, generator: torch.Generator,
-                          device: torch.device) -> torch.Tensor:
+                          device: torch.device,
+                          rows: parallel.RowLayout | None = None
+                          ) -> torch.Tensor:
     """``sample_mod="random"``'s draw: (B, P) int32 seed indices uniform
     in [0, num_seed), from ``generator`` (on the generator's device, then
-    moved to ``device``)."""
-    idx = torch.randint(0, num_seed, shape, generator=generator,
-                        device=generator.device, dtype=torch.int32)
-    return idx.to(device)
+    moved to ``device``); with ``rows``, this rank's rows of the global
+    batch's draw."""
+    def draw(s):
+        return torch.randint(0, num_seed, s, generator=generator,
+                             device=generator.device, dtype=torch.int32)
+
+    return parallel.draw_rows(rows, draw, shape).to(device)
 
 
 class ProposalHead(nn.Module):
@@ -107,7 +118,8 @@ class ProposalHead(nn.Module):
 
     def _aggregate(self, feat_dict: dict, sample_mod: str,
                    generator: torch.Generator | None = None,
-                   sample_indices: torch.Tensor | None = None):
+                   sample_indices: torch.Tensor | None = None,
+                   rows: parallel.RowLayout | None = None):
         """Returns the results dict (seed, vote and aggregated tensors) and
         the aggregated features."""
         seed_points = feat_dict["fp_xyz"][-1]
@@ -143,7 +155,7 @@ class ProposalHead(nn.Module):
             elif sample_indices is None:  # random
                 sample_indices = random_sample_indices(
                     (B, self.num_proposal), num_seed, generator,
-                    seed_points.device)
+                    seed_points.device, rows)
             agg = self.vote_aggregation(vote_points, vote_features,
                                         indices=sample_indices)
         aggregated_points, features, aggregated_indices = agg
@@ -153,7 +165,7 @@ class ProposalHead(nn.Module):
         return results, features
 
     def _quality_boxes(self, bbox_pred, results: dict, with_jitter: bool,
-                       noise, generator):
+                       noise, generator, rows=None):
         """The quality module's boxes: ``bbox_pred`` and, with jitter, its
         jittered copies (stored as ``jitter_bbox_preds``), detached;
         returns (boxes (B, P or 2P, 7), heading), the heading 0 for
@@ -161,7 +173,7 @@ class ProposalHead(nn.Module):
         if with_jitter:
             if noise is None:
                 noise = jitter_noise(bbox_pred[..., :3].shape, generator,
-                                     bbox_pred.device)
+                                     bbox_pred.device, rows)
             jitter = jitter_boxes(bbox_pred, noise, self.jitter_scale,
                                   self.jitter_size_bias)
             results["jitter_bbox_preds"] = jitter
@@ -223,9 +235,12 @@ class NesieHead(ProposalHead):
     def forward(self, feat_dict: dict, sample_mod: str = "seed",
                 with_jitter: bool = False, noise=None,
                 generator: torch.Generator | None = None,
-                sample_indices: torch.Tensor | None = None) -> dict:
+                sample_indices: torch.Tensor | None = None,
+                rows: parallel.RowLayout | None = None) -> dict:
         """``with_jitter`` adds the jittered proposal copies; their noise
-        is ``noise`` (two (B, P, 3) tensors) or drawn from ``generator``.
+        is ``noise`` (two (B, P, 3) tensors) or drawn from ``generator``
+        (with ``rows``, this rank's rows of the global batch's draws, as
+        for ``random``'s indices).
         In train mode the quality module's BN statistics then cover all
         2P proposals, as in the reference. ``sample_mod="random"`` takes
         ``sample_indices`` (B, P) or draws them from ``generator`` first,
@@ -233,7 +248,7 @@ class NesieHead(ProposalHead):
         self._check(sample_mod, with_jitter, noise, generator,
                     sample_indices)
         results, features = self._aggregate(feat_dict, sample_mod,
-                                            generator, sample_indices)
+                                            generator, sample_indices, rows)
         aggregated_points = results["aggregated_points"]
         B = aggregated_points.shape[0]
 
@@ -255,7 +270,7 @@ class NesieHead(ProposalHead):
 
         # quality module on the detached (and jittered) boxes
         both, heading = self._quality_boxes(bbox_pred, results, with_jitter,
-                                            noise, generator)
+                                            noise, generator, rows)
         side_scores, iou_scores = self.grid_conv(
             both[..., :3], both[..., 3:6], heading,
             results["seed_points"].detach(),

@@ -101,12 +101,13 @@ class SAQEHead(ProposalHead):
     def forward(self, feat_dict: dict, sample_mod: str = "seed",
                 with_jitter: bool = False, noise=None,
                 generator: torch.Generator | None = None,
-                sample_indices: torch.Tensor | None = None) -> dict:
+                sample_indices: torch.Tensor | None = None,
+                rows=None) -> dict:
         """As ``NesieHead.forward``."""
         self._check(sample_mod, with_jitter, noise, generator,
                     sample_indices)
         results, features = self._aggregate(feat_dict, sample_mod,
-                                            generator, sample_indices)
+                                            generator, sample_indices, rows)
 
         cls_pred, reg_pred = self.conv_pred(features)
         results["obj_scores"] = cls_pred[..., :2]
@@ -120,7 +121,7 @@ class SAQEHead(ProposalHead):
         results["bbox_probs"] = torch.softmax(dist_logits, dim=-1)
 
         both, heading = self._quality_boxes(bbox_pred, results, with_jitter,
-                                            noise, generator)
+                                            noise, generator, rows)
         if with_jitter:
             results["jitter_surface_preds"] = bbox_to_surface(
                 results["jitter_bbox_preds"])

@@ -153,11 +153,15 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str, entry: str, *args) -> None:
-    """Call one C entry point on the current stream; raise on a launch
-    error and count the launch."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), entry)(*args, stream)
+def launch(kernel: str, entry: str, *args, device: torch.device) -> None:
+    """Call one C entry point with ``device`` (the inputs' card) current,
+    on that card's current stream; raise on a launch error and count the
+    launch. A process may hold tensors on a card other than its current
+    one (a rank of a data-parallel run), and the kernel must land on the
+    card its pointers belong to."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     _LAUNCHES[kernel] += 1

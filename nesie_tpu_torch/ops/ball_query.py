@@ -78,5 +78,6 @@ def ball_query_cuda(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
         return out
     _build.launch("ball_query", "nesie_ball_query", xyz.data_ptr(),
                   centers.data_ptr(), B, N, M, num_samples,
-                  min_radius * min_radius, radius * radius, out.data_ptr())
+                  min_radius * min_radius, radius * radius, out.data_ptr(),
+                  device=xyz.device)
     return out

@@ -62,7 +62,7 @@ def fps_cuda(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
         return out
     dist = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
     _build.launch("fps", "nesie_fps", xyz.data_ptr(), B, N, num_samples,
-                  dist.data_ptr(), out.data_ptr())
+                  dist.data_ptr(), out.data_ptr(), device=xyz.device)
     return out
 
 
@@ -98,7 +98,8 @@ def fps_cluster_cuda(xyz: torch.Tensor, num_samples: int,
     if B == 0:
         return out
     _build.launch("fps_cluster", "nesie_fps_cluster", xyz.data_ptr(), B, N,
-                  num_samples, cluster_size, out.data_ptr())
+                  num_samples, cluster_size, out.data_ptr(),
+                  device=xyz.device)
     return out
 
 
@@ -169,7 +170,7 @@ def fps_onchip_cuda(xyz: torch.Tensor, num_samples: int,
                   N, num_samples, cluster_size, threads,
                   _exchange_id(exchange),
                   None if scratch is None else scratch.data_ptr(),
-                  out.data_ptr())
+                  out.data_ptr(), device=xyz.device)
     return out
 
 
@@ -191,5 +192,6 @@ def fps_onchip_timed(xyz: torch.Tensor, num_samples: int,
                         device=xyz.device)
     _build.launch("fps_onchip_timed", "nesie_fps_onchip_timed",
                   xyz.data_ptr(), B, N, num_samples, cluster_size, threads,
-                  _exchange_id(exchange), stamps.data_ptr(), out.data_ptr())
+                  _exchange_id(exchange), stamps.data_ptr(), out.data_ptr(),
+                  device=xyz.device)
     return out, stamps

@@ -102,7 +102,7 @@ def fps_variant_cuda(xyz: torch.Tensor, num_samples: int,
     dist = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
     _build.launch("fps_variant", "nesie_fps_variant", _IDS[name],
                   xyz.data_ptr(), aux.data_ptr(), B, N, num_samples,
-                  dist.data_ptr(), out.data_ptr())
+                  dist.data_ptr(), out.data_ptr(), device=xyz.device)
     _LAUNCHES[name] += 1
     return out
 

@@ -77,5 +77,5 @@ def three_nn_cuda(query: torch.Tensor, source: torch.Tensor,
         return idx
     _build.launch("three_nn", "nesie_three_nn", query.data_ptr(),
                   source.data_ptr(), B, M, N, queries_per_thread,
-                  idx.data_ptr())
+                  idx.data_ptr(), device=query.device)
     return idx

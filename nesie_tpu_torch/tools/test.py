@@ -7,7 +7,11 @@ mAP@0.25/0.5.
         work_dirs/nesie-votenet-scannet-train-010/checkpoints \\
         --data-root /data/scannet [--teacher] [--batch-size 32]
 
-``evaluate`` is the loop, for callers in-process.
+``evaluate`` is the loop, for callers in-process. Data-parallel under
+``torchrun`` (``--num-devices``, checked against the ranks launched): each
+global batch of ``batch_size`` times the ranks is split by rank, the
+detections are gathered to rank 0 in scene order, and rank 0 runs the AP
+evaluation and prints the metrics.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from nesie_tpu_torch import parallel
 
 RAW_KEYS = ("bbox_preds", "obj_scores", "sem_scores", "iou_scores",
             "side_scores", "surface_pred", "aggregated_points", "bbox_probs")
@@ -32,6 +38,9 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=8,
                    help="scenes per step")
     p.add_argument("--seed", type=int, default=9)
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="data-parallel size; must equal the ranks torchrun "
+                        "launched (default: that number)")
     p.add_argument("--teacher", action="store_true",
                    help="evaluate the EMA teacher weights")
     p.add_argument("--device", default="cuda",
@@ -69,8 +78,13 @@ def evaluate(cfg, model, ds, batch_size: int = 8, seed: int = 9,
     A batch's decoded tensors are copied to pinned host memory behind its
     NMS and read after the next batch's forward is launched, so the host's
     per-class expansion and GT bookkeeping overlap the device.
+
+    Under a launched process group a batch is ``batch_size`` scenes a rank:
+    every rank loads the global batch (so the subsample draws follow one
+    process's order), runs its rows, and rank 0 gathers the decoded
+    detections in scene order, drops the padded tail and returns the
+    metrics; the other ranks return None.
     """
-    from nesie_tpu_torch.data.dataset import batch_to_device
     from nesie_tpu_torch.eval import decode_and_nms, indoor_eval
     from nesie_tpu_torch.eval.iou_opt import iou_opt_boxes
     from nesie_tpu_torch.eval.postprocess import expand_per_class
@@ -82,11 +96,15 @@ def evaluate(cfg, model, ds, batch_size: int = 8, seed: int = 9,
     gen = torch.Generator(device).manual_seed(seed)
     n = len(ds)
     gt_annos, dt_annos = [], []
+    bs = batch_size * parallel.world_size()  # global batch
+    lo, hi = parallel.process_local_rows(bs)
+    rows = parallel.part_rows(batch_size)
+    lead = parallel.rank() == 0  # gathers and evaluates
 
     def load(start):
-        idx = list(range(start, min(start + batch_size, n)))
+        idx = list(range(start, min(start + bs, n)))
         n_real = len(idx)
-        idx = idx + [idx[-1]] * (batch_size - n_real)  # pad the tail batch
+        idx = idx + [idx[-1]] * (bs - n_real)  # pad the tail batch
         return start, n_real, ds.eval_batch(idx, rng, cfg.data.num_points)
 
     def to_host(tensors: dict):
@@ -102,13 +120,15 @@ def evaluate(cfg, model, ds, batch_size: int = 8, seed: int = 9,
         if ev is not None:
             ev.synchronize()
         decoded = {k: v.numpy() for k, v in decoded.items()}
-        if dump_raw:
+        if dump_raw:  # each rank its own rows
             dump_dir = Path(dump_raw)
             dump_dir.mkdir(parents=True, exist_ok=True)
             raw = {k: out[k].cpu().numpy() for k in RAW_KEYS if k in out}
-            for b in range(n_real):
-                np.savez(dump_dir / f"{batch['scene_ids'][b]}.npz",
+            for b in range(max(min(n_real, hi) - lo, 0)):
+                np.savez(dump_dir / f"{batch['scene_ids'][lo + b]}.npz",
                          **{k: v[b] for k, v in raw.items()})
+        if not lead:
+            return
         for b in range(n_real):
             boxes, scores, labels = expand_per_class(
                 {k: v[b] for k, v in decoded.items()})
@@ -124,12 +144,12 @@ def evaluate(cfg, model, ds, batch_size: int = 8, seed: int = 9,
         in_flight = None  # the previous batch, its copies under way
         while pending is not None:
             start, n_real, batch = pending.result()
-            nxt = start + batch_size
+            nxt = start + bs
             pending = loader.submit(load, nxt) if nxt < n else None
-            points = batch_to_device({"points": batch["points"]},
-                                     device)["points"]
+            points = parallel.shard_host_batch(
+                {"points": batch["points"]}, device, lo, hi)["points"]
             out = model(points, cfg.test.sample_mod, with_jitter=False,
-                        generator=gen)
+                        generator=gen, rows=rows)
             if cfg.test.iou_opt:
                 # test-time IoU optimisation (reference iou_opt_test,
                 # votenet_nesie.py:501-571)
@@ -142,12 +162,17 @@ def evaluate(cfg, model, ds, batch_size: int = 8, seed: int = 9,
                 out, points, nms_thr=cfg.test.nms_thr,
                 score_thr=cfg.test.score_thr,
                 use_iou_for_nms=cfg.test.use_iou_for_nms)
+            # every rank's rows, in scene order (a no-op on one process)
+            decoded = {k: parallel.all_gather_rows(v)
+                       for k, v in decoded.items()}
             host, ev = to_host(decoded)
             in_flight = (start, n_real, batch, out if dump_raw else None,
                          host, ev)
         if in_flight is not None:
             postprocess(*in_flight)
 
+    if not lead:
+        return None
     return indoor_eval(gt_annos, dt_annos, class_names=class_names(cfg))
 
 
@@ -174,11 +199,14 @@ def main(argv=None):
     if ckpt is None:
         raise FileNotFoundError(f"no checkpoint under {args.checkpoint}")
     model.load_state_dict(ckpt["teacher" if args.teacher else "model"])
-    model = model.to(args.device)
+    mesh = parallel.make_mesh(args.num_devices, args.device)
+    model = model.to(mesh.device)
     logging.info("restored step %d", ckpt["step"])
 
     results = evaluate(cfg, model, ds, args.batch_size, args.seed,
-                       args.device, dump_raw=args.dump_raw)
+                       mesh.device, dump_raw=args.dump_raw)
+    if results is None:  # not rank 0
+        return None
     for k in sorted(results):
         if k.startswith("mAP") or k.startswith("mAR"):
             print(f"{k}: {results[k]:.4f}")
@@ -187,4 +215,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        parallel.shutdown()

@@ -9,6 +9,15 @@ Examples:
         --data-root /data/scannet --load-from work_dirs/.../checkpoints
 
 ``--device cpu`` runs on the CPU (the kernels' plain versions).
+
+Data-parallel, one process a card (gloo for ranks on the CPU or sharing a
+card, NCCL otherwise; ``parallel.mesh``)::
+
+    torchrun --nproc_per_node 4 -m nesie_tpu_torch.tools.train \
+        nesie-votenet-scannet-train-010 --data-root /data/scannet \
+        --load-from work_dirs/.../checkpoints
+
+The global batch is ``data.samples_per_step`` times the ranks.
 """
 from __future__ import annotations
 
@@ -31,11 +40,12 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu for tests)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training: not supported until DDP "
-                        "(ROADMAP §1.4)")
+                   help="multi-node training: the process group comes from "
+                        "torchrun's environment (--nnodes, --rdzv-endpoint); "
+                        "fails without it")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="data-parallel size; the port runs on one device "
-                        "until DDP (ROADMAP §1.4)")
+                   help="data-parallel size; must equal the ranks torchrun "
+                        "launched (default: that number)")
     p.add_argument("--autoscale-lr", action="store_true",
                    help="linear-scale lr by num_devices/8 "
                         "(reference train.py:127-129)")
@@ -47,10 +57,8 @@ def parse_args(argv=None):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("--multihost: nesie_tpu_torch runs on one "
-                                  "device until DDP (ROADMAP §1.4)")
 
+    from nesie_tpu_torch import parallel
     from nesie_tpu_torch.config import apply_overrides, get_config
     from nesie_tpu_torch.data.dataset import SimiScanNetScenes, SubScanNetScenes
     from nesie_tpu_torch.train import runner
@@ -59,8 +67,13 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, seed=args.seed, work_dir=args.work_dir,
                               num_devices=args.num_devices)
     cfg = apply_overrides(cfg, args.cfg_options)
+    mesh = parallel.make_mesh(cfg.num_devices, args.device)
+    if args.multihost and mesh.backend is None:
+        raise ValueError("--multihost needs the process group's environment: "
+                         "launch with torchrun (RANK, WORLD_SIZE, "
+                         "MASTER_ADDR, MASTER_PORT)")
     if args.autoscale_lr:
-        n_dev = cfg.num_devices or 1
+        n_dev = cfg.num_devices or mesh.size
         cfg = dataclasses.replace(
             cfg, optim=dataclasses.replace(cfg.optim, lr=cfg.optim.lr * n_dev / 8)
         )
@@ -68,10 +81,10 @@ def main(argv=None):
 
     # dump the resolved config into the work dir (reference train.py:144)
     work = Path(args.work_dir) / cfg.name
-    work.mkdir(parents=True, exist_ok=True)
-    (work / "config.json").write_text(
-        json.dumps(dataclasses.asdict(cfg), indent=2, default=str)
-    )
+    if mesh.rank == 0:
+        work.mkdir(parents=True, exist_ok=True)
+        (work / "config.json").write_text(
+            json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
 
     root = Path(args.data_root)
     ann = root / cfg.data.train_ann_file
@@ -79,21 +92,28 @@ def main(argv=None):
 
     load_state = None
     if args.load_from:
-        loaded = runner.init_state(cfg, runner.build_model(cfg), 1, args.device)
+        loaded = runner.init_state(cfg, runner.build_model(cfg), 1,
+                                   mesh.device)
         mgr = runner.CheckpointManager(Path(args.load_from).parent)
         loaded, _, step = mgr.restore(loaded)
-        fresh = runner.init_state(cfg, runner.build_model(cfg), 1, args.device)
+        fresh = runner.init_state(cfg, runner.build_model(cfg), 1,
+                                  mesh.device)
         load_state = runner.weights_only_load(fresh, loaded)
         logging.info("loaded weights at step %d from %s", step, args.load_from)
 
     if cfg.mode == "pretrain":
         ds = SubScanNetScenes(root, ann, split)
         return runner.train_supervised(cfg, ds, load_state, resume=args.resume,
-                                       device=args.device)
+                                       device=mesh.device)
     ds = SimiScanNetScenes(root, ann, split, ratio=cfg.data.unlabeled_ratio)
     return runner.train_semi(cfg, ds, load_state, resume=args.resume,
-                             device=args.device)
+                             device=mesh.device)
 
 
 if __name__ == "__main__":
-    main()
+    from nesie_tpu_torch import parallel
+
+    try:
+        main()
+    finally:
+        parallel.shutdown()

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from nesie_tpu_torch import parallel
 from nesie_tpu_torch.core.boxes import box_corners, corners_minmax
 
 
@@ -109,11 +110,14 @@ def quality_poly(side_scores):
 
 
 def get_pseudo_labels(teacher_results, acc,
-                      cfg: PseudoLabelConfig = PseudoLabelConfig()
+                      cfg: PseudoLabelConfig = PseudoLabelConfig(),
+                      rows: parallel.RowLayout | None = None
                       ) -> PseudoLabels:
     """Filter the teacher's predictions into at most ``max_num_obj``
     pseudo boxes per scene. acc: (C,) from ``classwise_acc`` (unused
-    without CBL). Boxes come back bottom-centered."""
+    without CBL). Boxes come back bottom-centered. ``rows``: this rank's
+    rows of the global batch, whose flattened classes the literal CBL
+    threshold indexes (as the JAX step indexes the whole batch's)."""
     sem = teacher_results["sem_scores"]  # (B, P, C) logits
     B, P = sem.shape[:2]
     bbox = teacher_results["bbox_preds"]
@@ -125,7 +129,8 @@ def get_pseudo_labels(teacher_results, acc,
         if cfg.literal_reference_cbl:
             # thr[j] = acc[cls_flat[cls_flat[j]]], as the reference indexes
             flat = argmax_cls.reshape(-1)
-            thr = acc[flat[torch.clamp(flat, max=flat.numel() - 1)]]
+            lookup = parallel.global_rows(rows, argmax_cls).reshape(-1)
+            thr = acc[lookup[torch.clamp(flat, max=lookup.numel() - 1)]]
             thr = thr.reshape(argmax_cls.shape)
         else:
             thr = acc[argmax_cls]

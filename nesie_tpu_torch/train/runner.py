@@ -22,8 +22,17 @@ cadence, so that one seed gives the JAX runner's batch sequence.
   the semi loop's ``UlbState`` and a ``meta`` dict; the reference's paired
   ``epoch_N.pth`` / ``epoch_N_ema.pth`` files in one.
 
-The port runs on one device: ``num_devices`` other than None or 1 raises
-``NotImplementedError`` naming its ROADMAP item (``check_supported``).
+Data parallel under ``torchrun``, one process a device (``parallel``): the
+global batch is ``samples_per_step`` times the world size, every rank
+follows the shared scene order and loads its rows of each step's batch
+(labeled rows ``[r·bl, (r+1)·bl)`` of the step's labeled scenes, then its
+``ratio·bl`` unlabeled draws) from its own data stream ``default_rng([seed,
+rank])``, as the JAX runner's ``[seed, process_index]``. The steps compute
+what one process computes on the global batch. Rank 0 writes the
+checkpoints (``meta["mesh_size"]``: the world size) and the metrics file;
+every rank restores, and a checkpoint written at another world size
+resumes at the rescaled step. ``num_devices`` must be None or the world
+size (``check_supported``).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from nesie_tpu_torch import parallel
 from nesie_tpu_torch.config import ExperimentConfig
 from nesie_tpu_torch.data.dataset import (
     AugConfig,
@@ -56,16 +66,11 @@ from nesie_tpu_torch.utils import LOGGER_NAME, MetricsLogger, collect_env
 
 log = logging.getLogger(LOGGER_NAME)
 
-MESH_SIZE = 1  # devices a run spans; checkpoints record it
-
 
 def check_supported(cfg: ExperimentConfig) -> None:
-    """Raise ``NotImplementedError`` for a setting the port lacks: more
-    than one device."""
-    if cfg.num_devices not in (None, 1):
-        raise NotImplementedError(
-            f"nesie_tpu_torch does not support num_devices="
-            f"{cfg.num_devices} (ROADMAP §1.4, DDP) yet")
+    """Raise ``ValueError`` when ``cfg.num_devices`` is set and is not the
+    launched world size (``torchrun --nproc_per_node``)."""
+    parallel.check_num_devices(cfg.num_devices)
 
 
 def build_model(cfg: ExperimentConfig) -> VoteNetNesie:
@@ -246,6 +251,16 @@ def _log_metrics(step, epoch, vals: dict, t_step):
     log.info("epoch %d step %d (%.2fs/it): %s", epoch, step, t_step, msg)
 
 
+def _save(ckpt: CheckpointManager, mesh, state: TrainState,
+          ulb_state=None) -> None:
+    """Rank 0 writes the checkpoint (every rank holds the same state), the
+    others wait for it."""
+    if mesh.rank == 0:
+        ckpt.save(state.step, state, ulb_state,
+                  meta={"mesh_size": mesh.size})
+    parallel.barrier()
+
+
 def _prepare(cfg: ExperimentConfig, load_state, steps_per_epoch, device):
     """The run's TrainState: ``load_state`` if given, else a fresh one;
     either way with this run's LR schedule."""
@@ -259,9 +274,13 @@ def _prepare(cfg: ExperimentConfig, load_state, steps_per_epoch, device):
 def train_supervised(cfg: ExperimentConfig, dataset: SubScanNetScenes,
                      load_state=None, resume: bool = False,
                      epoch_callback=None, device="cuda") -> TrainState:
-    """Supervised pretrain loop (reference VoteNet phase, votenet.py:27)."""
-    device = torch.device(device)
-    bs = cfg.data.samples_per_step * MESH_SIZE
+    """Supervised pretrain loop (reference VoteNet phase, votenet.py:27),
+    data-parallel over the launched ranks: the global batch is
+    ``samples_per_step`` times the world size, this rank loads its slice."""
+    mesh = parallel.make_mesh(cfg.num_devices, device)
+    device = mesh.device
+    bl = cfg.data.samples_per_step
+    bs = bl * mesh.size  # global batch
     n = len(dataset)
     steps_per_epoch = max(n * cfg.data.repeat // bs, 1)
     state = _prepare(cfg, load_state, steps_per_epoch, device)
@@ -269,30 +288,33 @@ def train_supervised(cfg: ExperimentConfig, dataset: SubScanNetScenes,
     work = Path(cfg.work_dir) / cfg.name
     ckpt = CheckpointManager(work)
     if resume:
-        state, _, at = ckpt.restore(state, mesh_size=MESH_SIZE)
+        state, _, at = ckpt.restore(state, mesh_size=mesh.size)
         log.info("resumed from step %d", at)
+    parallel.replicate(state.model, state.teacher)
     log.info("env: %s", collect_env())
-    log.info("device %s, batch %d, %d steps an epoch", device, bs,
-             steps_per_epoch)
-    # the scene order and the point/augmentation draws are two streams,
-    # as in the JAX runner (its process-local stream of process 0)
+    log.info("device %s, rank %d of %d, global batch %d, %d steps an epoch",
+             device, mesh.rank, mesh.size, bs, steps_per_epoch)
+    # the scene order (shared by every rank) and the point/augmentation
+    # draws (one stream a rank) are two streams, as in the JAX runner
     order_rng = np.random.default_rng(cfg.seed)
-    rng = np.random.default_rng([cfg.seed, 0])
+    rng = np.random.default_rng([cfg.seed, mesh.rank])
     gen = torch.Generator(device).manual_seed(cfg.seed)
     aug_cfg = strong_aug_config(cfg)
+    lo = mesh.rank * bl
 
     def epoch_batches(order):
         for it in range(steps_per_epoch):
             idx = order[it * bs: (it + 1) * bs]
             if len(idx) < bs:
                 return
-            batch = dataset.train_batch(idx, rng, aug_cfg=aug_cfg,
+            batch = dataset.train_batch(idx[lo:lo + bl], rng,
+                                        aug_cfg=aug_cfg,
                                         num_points=cfg.data.num_points)
             batch.pop("scene_ids", None)
             yield batch_to_device(batch, device)
 
     start_epoch = state.step // steps_per_epoch
-    with MetricsLogger(work) as mlog:
+    with MetricsLogger(work, enabled=mesh.rank == 0) as mlog:
         for epoch in range(start_epoch, cfg.optim.max_epochs):
             order = np.concatenate(
                 [order_rng.permutation(n) for _ in range(cfg.data.repeat)]
@@ -306,7 +328,7 @@ def train_supervised(cfg: ExperimentConfig, dataset: SubScanNetScenes,
                                  time.perf_counter() - t0)
                     mlog.log(state.step, vals)
             if (epoch + 1) % cfg.checkpoint_interval_epochs == 0:
-                ckpt.save(state.step, state, meta={"mesh_size": MESH_SIZE})
+                _save(ckpt, mesh, state)
             if epoch_callback is not None:
                 epoch_callback(epoch, state)
     return state
@@ -327,30 +349,39 @@ def train_semi(cfg: ExperimentConfig, dataset: SimiScanNetScenes,
     means the teacher-student mechanism silently degenerated to
     labeled-only training (the reference has no guard for this either —
     its thresholds assume a fully-trained pretrain); the runner logs a
-    WARNING so it is visible in the logs and in studies."""
-    device = torch.device(device)
-    bs = cfg.data.samples_per_step * MESH_SIZE  # labeled rows a step
-    B = bs * (1 + dataset.ratio)
+    WARNING so it is visible in the logs and in studies.
+
+    Data-parallel over the launched ranks: a rank's batch is its rows of
+    each part of the global batch (``parallel.mesh``), labeled rows
+    ``[r·bl, (r+1)·bl)`` of the step's labeled scenes, then ``ratio·bl``
+    unlabeled draws from its own data stream."""
+    mesh = parallel.make_mesh(cfg.num_devices, device)
+    device = mesh.device
+    bl = cfg.data.samples_per_step  # labeled rows a step and rank
+    bs = bl * mesh.size  # global labeled batch
     n = dataset.num_labeled
     steps_per_epoch = max(n * cfg.data.repeat // bs, 1)
     state = _prepare(cfg, load_state, steps_per_epoch, device)
-    step_fn = _semi_step_fn(cfg, bs, dataset.num_labeled)
+    step_fn = _semi_step_fn(cfg, bl, dataset.num_labeled)
     ulb_state = UlbState.create(dataset.num_unlabeled, cfg.model.num_classes,
                                 device=device)
     work = Path(cfg.work_dir) / cfg.name
     ckpt = CheckpointManager(work)
     if resume:
         state, ulb_state, at = ckpt.restore(state, ulb_state,
-                                             mesh_size=MESH_SIZE)
+                                             mesh_size=mesh.size)
         log.info("resumed from step %d", at)
+    parallel.replicate(state.model, state.teacher)
     log.info("env: %s", collect_env())
-    log.info("device %s, batch %d+%d, %d steps an epoch", device, bs, B - bs,
+    log.info("device %s, rank %d of %d, global batch %d+%d, %d steps an "
+             "epoch", device, mesh.rank, mesh.size, bs, bs * dataset.ratio,
              steps_per_epoch)
     order_rng = np.random.default_rng(cfg.seed)
-    rng = np.random.default_rng([cfg.seed, 0])
+    rng = np.random.default_rng([cfg.seed, mesh.rank])
     gen = torch.Generator(device).manual_seed(cfg.seed)
     gen_t = torch.Generator(device).manual_seed(cfg.seed + 1)
     aug_cfg = strong_aug_config(cfg)
+    lo = mesh.rank * bl
 
     def epoch_batches(order):
         for it in range(steps_per_epoch):
@@ -358,15 +389,16 @@ def train_semi(cfg: ExperimentConfig, dataset: SimiScanNetScenes,
             if len(idx) < bs:
                 return
             batch = dataset.semi_batch(
-                idx, rng, strong_cfg=aug_cfg,
-                num_points=cfg.data.num_points, n_unlabeled=B - bs,
+                idx[lo:lo + bl], rng, strong_cfg=aug_cfg,
+                num_points=cfg.data.num_points,
+                n_unlabeled=bl * dataset.ratio,
             )
             yield batch_to_device(batch, device)
 
     start_epoch = state.step // steps_per_epoch
     pseudo_means = [] if run_stats is None else run_stats.setdefault(
         "num_pseudo_per_step", [])
-    with MetricsLogger(work) as mlog:
+    with MetricsLogger(work, enabled=mesh.rank == 0) as mlog:
         for epoch in range(start_epoch, cfg.optim.max_epochs):
             order = np.concatenate(
                 [order_rng.permutation(n) for _ in range(cfg.data.repeat)]
@@ -390,7 +422,7 @@ def train_semi(cfg: ExperimentConfig, dataset: SimiScanNetScenes,
             mean_pseudo = total_pseudo / max(ep_steps, 1)
             pseudo_means.append(mean_pseudo)
             mlog.log(state.step, {"epoch_num_pseudo_mean": mean_pseudo})
-            if total_pseudo == 0.0:
+            if total_pseudo == 0.0 and mesh.rank == 0:
                 log.warning(
                     "epoch %d produced ZERO pseudo-labels across %d steps — the "
                     "semi-supervised loop is training labeled-only (teacher not "
@@ -398,8 +430,7 @@ def train_semi(cfg: ExperimentConfig, dataset: SimiScanNetScenes,
                     epoch, ep_steps,
                 )
             if (epoch + 1) % cfg.checkpoint_interval_epochs == 0:
-                ckpt.save(state.step, state, ulb_state,
-                          meta={"mesh_size": MESH_SIZE})
+                _save(ckpt, mesh, state, ulb_state)
             if epoch_callback is not None:
                 epoch_callback(epoch, state)
         if run_stats is not None and pseudo_means:

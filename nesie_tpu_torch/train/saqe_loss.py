@@ -8,7 +8,8 @@ Where they differ from the Nesie losses:
   and jitter, x0.5);
 * the angle: SmoothL1 on sin and cos (x10), and in pretrain only a
   self-distilled angle quality (MSE on rotate_scores, x1) whose label is
-  divided by the batch's largest box-loss weight (saqe_head.py:427);
+  divided by the batch's largest box-loss weight (saqe_head.py:427; the
+  global batch's, over every rank under a process group);
 * pretrain applies no sigma attenuation; the semi phase applies
   ``exp(-sigma)`` with sigma detached and no ``+ alpha * sigma`` term;
 * the side loss also supervises the jittered side scores against the
@@ -20,6 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
+from nesie_tpu_torch import parallel
 from nesie_tpu_torch.core.iou import iou3d
 from nesie_tpu_torch.losses import (
     iou_3d_loss,
@@ -105,8 +107,8 @@ def saqe_supervised_loss(results, targets: HeadTargets,
     # self-distilled angle quality, pretrain only: the semi phase's
     # sup_loss (saqe_head.py:524-705) never trains rotate_scores
     if phase != "semi":
-        angle_label = (angle_elem / torch.clamp(
-            targets.box_loss_weights.max(), min=1e-12)).detach()
+        angle_label = (angle_elem / torch.clamp(parallel.all_reduce_max(
+            targets.box_loss_weights.max()), min=1e-12)).detach()
         rot_j_at = _at(results["rotate_scores_jitter"].reshape(flat, C),
                        sem_argmax)
         losses["angle_pred_loss"] = cfg.angle_pred_weight * (

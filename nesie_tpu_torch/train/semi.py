@@ -10,6 +10,14 @@ running statistics; its pseudo boxes are moved from the weak to the
 strong view by replaying the recorded ``AugParams``. The per-scan pseudo
 class histograms (the reference runner's ``ulb_list`` / ``ulb_flag``) live
 in a ``UlbState`` of device tensors.
+
+Under a launched process group (``parallel``) each rank holds its rows of
+each part, labeled then unlabeled (``parallel.mesh``'s row layout), and
+the step computes what one process computes on the global batch: BN
+statistics, loss normalisers and gradients over every rank, the draws made
+for the global batch, and ``UlbState`` updated from every rank's
+unlabeled rows in their global order, so that it stays the same on every
+rank.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from nesie_tpu_torch import parallel
 from nesie_tpu_torch.data.augment import (
     augment_boxes,
     augment_points,
@@ -140,7 +149,8 @@ def make_semi_train_step(
     losses; the pseudo-labels are built as for Nesie, from the teacher's
     ``obj_scores``, as the JAX package builds them (ROADMAP §3).
 
-    batch (B = n_labeled + n_unlabeled, labeled first):
+    batch (B = n_labeled + n_unlabeled, labeled first; under a process
+    group this rank's rows of each part):
         points_raw_s, points_raw_t (B, N, C): the un-augmented strong and
             weak views;
         gt_boxes (B, MAX_GT, 7) / gt_labels / gt_valid: un-augmented GT of
@@ -173,6 +183,7 @@ def make_semi_train_step(
              generator: torch.Generator | None = None, teacher_noise=None,
              teacher_generator: torch.Generator | None = None):
         B = batch["points_raw_s"].shape[0]
+        rows = parallel.part_rows(n_labeled, B - n_labeled)
         points_s = augment_points(batch["points_raw_s"], batch["aug_s"],
                                   shift_height=True)
         points_t = augment_points(batch["points_raw_t"], batch["aug_t"],
@@ -185,25 +196,28 @@ def make_semi_train_step(
             teacher_out = teacher(points_t, sample_mod,
                                   with_jitter=teacher_jitter,
                                   noise=teacher_noise,
-                                  generator=teacher_generator)
+                                  generator=teacher_generator, rows=rows)
         teacher.eval()
 
         acc = classwise_acc(ulb_state.ulb_list, ulb_state.ulb_flag,
                             num_labeled_scans, pl_cfg.thresh_warmup,
                             literal=pl_cfg.literal_reference_cbl)
-        pl = get_pseudo_labels(teacher_out, acc, pl_cfg)
+        pl = get_pseudo_labels(teacher_out, acc, pl_cfg, rows)
         pl_boxes = reproject_boxes(pl.boxes, batch["aug_t"], batch["aug_s"])
         pl_boxes = pl_boxes * pl.valid[..., None]
 
         hist = (F.one_hot(pl.labels.long(), pl_cfg.num_classes).float()
                 * pl.valid[..., None]).sum(1)
+        # every rank's unlabeled rows in global order: the last-row rule
+        # is by global position
         new_ulb_state = update_ulb_state(
-            ulb_state, batch["ulb_scan_idx"][n_labeled:].long(),
-            hist[n_labeled:])
+            ulb_state,
+            parallel.all_gather_rows(batch["ulb_scan_idx"][n_labeled:].long()),
+            parallel.all_gather_rows(hist[n_labeled:]))
 
         state.model.train()
         out = state.model(points_s, sample_mod, with_jitter=True, noise=noise,
-                          generator=generator)
+                          generator=generator, rows=rows)
         out_sup, out_unsup = _slice(out, 0, n_labeled), _slice(out, n_labeled, B)
         sup_targets = get_targets(
             points_s[:n_labeled, :, :3], gt_boxes[:n_labeled],
@@ -227,8 +241,9 @@ def make_semi_train_step(
         metrics = {k: v.detach() for k, v in {**sup_terms,
                                               **unsup_terms}.items()}
         metrics["loss"] = total.detach()
-        metrics["grad_norm"] = grad_norm
         metrics["num_pseudo"] = pl.valid[n_labeled:].sum()
+        metrics = parallel.reduce_metrics(metrics)  # the global values
+        metrics["grad_norm"] = grad_norm
         return new_ulb_state, metrics
 
     return step

@@ -3,12 +3,16 @@
 
 A step updates ``TrainState`` in place (the student, its optimizer, the
 step count and the teacher) and returns its metrics as 0-dim tensors on
-the model's device, so that it does not wait for the card.
+the model's device, so that it does not wait for the card. Under a
+launched process group (``parallel``) a rank's batch is its rows of the
+global batch and the step computes what one process computes on the whole
+of it; the metrics are the global ones.
 """
 from __future__ import annotations
 
 import torch
 
+from nesie_tpu_torch import parallel
 from nesie_tpu_torch.data.augment import augment_boxes, augment_points
 from .state import TrainState, apply_gradients, ema_update
 from .saqe_loss import SAQELossConfig, saqe_supervised_loss
@@ -67,7 +71,8 @@ def make_supervised_train_step(
             gt_boxes = augment_boxes(gt_boxes, batch["aug"])
         state.model.train()
         out = state.model(points, sample_mod, with_jitter=True, noise=noise,
-                          generator=generator)
+                          generator=generator,
+                          rows=parallel.part_rows(points.shape[0]))
         targets = get_targets(
             points[..., :3], gt_boxes, batch["gt_labels"], batch["gt_valid"],
             out["aggregated_points"], pos_distance_thr=pos_distance_thr,
@@ -78,6 +83,7 @@ def make_supervised_train_step(
         ema_update(state, ema_momentum, ema_warm_up, ema_bn_stats)
         metrics = {k: v.detach() for k, v in terms.items()}
         metrics["loss"] = total.detach()
+        metrics = parallel.reduce_metrics(metrics)  # the global values
         metrics["grad_norm"] = grad_norm
         return metrics
 

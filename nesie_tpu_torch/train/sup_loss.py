@@ -2,6 +2,8 @@
 (reference NesieHead.loss, nesie_head.py:277-412, and
 VoteModule.get_loss, vote_module.py:149): every reduction, weight and the
 sigma attenuation as there, on the head's results dict and HeadTargets.
+Normalisers are global-batch sums (see ``targets``), so each rank's terms
+are its share of the global loss.
 """
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ from dataclasses import dataclass
 
 import torch
 
+from nesie_tpu_torch import parallel
 from nesie_tpu_torch.core.iou import iou3d
 from nesie_tpu_torch.losses import (
     iou_3d_loss,
@@ -55,7 +58,7 @@ def vote_loss_fn(results, targets: HeadTargets, cfg: NesieLossConfig):
     B, S = seed_idx.shape
     gt_votes = (vt + results["seed_points"].repeat(1, 1, g)).reshape(B, S, g, 3)
     dist = l1_loss(results["vote_points"][:, :, None, :], gt_votes).sum(-1)
-    weight = mask / (mask.sum() + 1e-6)
+    weight = mask / (parallel.all_reduce_sum(mask.sum()) + 1e-6)
     dist = dist * weight[..., None] * cfg.vote_dst_weight
     return dist.amin(-1).sum()
 

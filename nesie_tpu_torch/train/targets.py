@@ -11,6 +11,9 @@ Reference quirks kept, as in the JAX package:
   * padded zero boxes take part in the proposal->GT chamfer loss but not
     in the argmin assignment;
   * an empty scene falls back to the zero box in slot 0 with label 0.
+
+The weights are normalised by sums over the global batch: over every
+rank's rows under a launched process group (``parallel``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from nesie_tpu_torch import parallel
 from nesie_tpu_torch.core.boxes import points_in_boxes
 from nesie_tpu_torch.losses.chamfer import chamfer_distance
 
@@ -96,11 +100,14 @@ def get_targets(points, gt_boxes, gt_labels, gt_valid, aggregated_points,
     pos = euclid < pos_distance_thr
     objectness_targets = pos.to(torch.int32)
     objectness_masks = (pos | (euclid > neg_distance_thr)).float()
-    objectness_weights = objectness_masks / (objectness_masks.sum() + 1e-6)
     pos_f = pos.float()
-    box_loss_weights = pos_f / (pos_f.sum() + 1e-6)
     valid_f = gt_valid.float()
-    valid_gt_weights = valid_f / (valid_f.sum() + 1e-6)
+    # the normalisers: sums over the global batch (every rank's rows)
+    n_obj, n_pos, n_valid = parallel.all_reduce_sum(torch.stack(
+        [objectness_masks.sum(), pos_f.sum(), valid_f.sum()]))
+    objectness_weights = objectness_masks / (n_obj + 1e-6)
+    box_loss_weights = pos_f / (n_pos + 1e-6)
+    valid_gt_weights = valid_f / (n_valid + 1e-6)
 
     mask_targets = gt_labels.gather(1, assignment)
     idx = assignment[..., None]

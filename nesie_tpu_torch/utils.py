@@ -51,21 +51,29 @@ def collect_env():
 
 class MetricsLogger:
     """JSONL metrics stream (``<work_dir>/metrics.jsonl``): the runner's
-    log_buffer / TextLoggerHook equivalent."""
+    log_buffer / TextLoggerHook equivalent. ``enabled=False`` (every rank
+    but 0 of a data-parallel run, as the reference's master-only loggers)
+    writes nothing."""
 
-    def __init__(self, work_dir):
+    def __init__(self, work_dir, enabled: bool = True):
         self.path = Path(work_dir)
+        self.jsonl = None
+        if not enabled:
+            return
         self.path.mkdir(parents=True, exist_ok=True)
         self.jsonl = open(self.path / "metrics.jsonl", "a")
 
     def log(self, step: int, metrics: dict):
+        if self.jsonl is None:
+            return
         row = {"step": step, "time": time.time()}
         row.update({k: float(v) for k, v in metrics.items()})
         self.jsonl.write(json.dumps(row) + "\n")
         self.jsonl.flush()
 
     def close(self):
-        self.jsonl.close()
+        if self.jsonl is not None:
+            self.jsonl.close()
 
     def __enter__(self):
         return self

@@ -540,3 +540,30 @@ def test_ball_query_spec_shape(cuda):
         device=cuda)).contiguous()
     assert torch.equal(ball_query_cuda(seeds, votes, 0.3, 16),
                        ball_query_ref(seeds, votes, 0.3, 16))
+
+
+@pytest.mark.gpu
+def test_launch_lands_on_the_tensors_card(cuda):
+    """FPS, the ball query and three-NN on tensors of a card other than the
+    current one (a data-parallel rank's situation) run on that card: the
+    launch makes the tensors' card current for the call and takes its
+    stream. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    other = torch.device("cuda", 1)
+    xyz = _uniform((2, 3000, 3), seed=21, scale=2.0)
+    query = _uniform((2, 700, 3), seed=22, scale=2.0)
+    before = _build.launch_counts()
+    idx = fps_onchip_cuda(xyz.to(other), 256)
+    nbrs = ball_query_cuda(xyz.to(other), query.to(other), 0.3, 16)
+    nn3 = three_nn_cuda(query.to(other), xyz.to(other))
+    torch.cuda.synchronize(other)
+    assert torch.cuda.current_device() == 0
+    assert idx.device == nbrs.device == nn3.device == other
+    assert torch.equal(idx.cpu(), fps_ref(xyz, 256))
+    assert torch.equal(nbrs.cpu(), ball_query_ref(xyz, query, 0.3, 16))
+    assert torch.equal(nn3.cpu(), three_nn_ref(query, xyz))
+    after = _build.launch_counts()
+    assert after["ball_query"] == before["ball_query"] + 1
+    assert after["three_nn"] == before["three_nn"] + 1

@@ -645,8 +645,8 @@ def _torch_semi(model, data, noise, teacher_jitter=True):
     names = [n for n, _ in state.model.named_parameters()]
     get_pl, clip = tsemi.get_pseudo_labels, tstate.clip_by_global_norm_
 
-    def get_pseudo_labels(teacher_results, acc, cfg):
-        lab = get_pl(teacher_results, acc, cfg)
+    def get_pseudo_labels(teacher_results, acc, cfg, rows=None):
+        lab = get_pl(teacher_results, acc, cfg, rows)
         seen["teacher"] = [
             teacher_results.get("iou_scores_jitter", torch.zeros(0)).numpy(),
             lab.valid.numpy(), lab.labels.numpy(), lab.quality.numpy()]

@@ -343,10 +343,12 @@ def test_resume_continues_at_step_over_steps_per_epoch(trained):
 
 @pytest.mark.parametrize("over", ["num_devices=2"])
 def test_missing_options_raise(over):
-    """DDP (ROADMAP §1.4) is the one setting the port still lacks."""
+    """The one setting the port refuses: a ``num_devices`` that is not the
+    launched world size (one process here), with a ``ValueError`` that
+    names torchrun."""
     cfg = tconfig.apply_overrides(
         tconfig.get_config("nesie-votenet-scannet-train-010"), [over])
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         trunner.build_model(cfg)
 
 

@@ -768,8 +768,8 @@ def semi_step():
     names = [n for n, _ in state.model.named_parameters()]
     get_pl = tsemi.get_pseudo_labels
 
-    def t_get_pseudo_labels(teacher_results, acc, cfg):
-        lab = get_pl(teacher_results, acc, cfg)
+    def t_get_pseudo_labels(teacher_results, acc, cfg, rows=None):
+        lab = get_pl(teacher_results, acc, cfg, rows)
         tseen["torch"] = [teacher_results["aggregated_indices"].numpy(),
                           lab.valid.numpy(), lab.labels.numpy(),
                           lab.quality.numpy()]

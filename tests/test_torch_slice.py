@@ -182,7 +182,8 @@ def test_port_never_imports_jax():
             "nesie_tpu_torch.tools.validation_run, "
             "nesie_tpu_torch.nn.saqe_head, "
             "nesie_tpu_torch.nn.quality_estimation, "
-            "nesie_tpu_torch.train.saqe_loss; "
+            "nesie_tpu_torch.train.saqe_loss, nesie_tpu_torch.parallel, "
+            "nesie_tpu_torch.parallel.launch; "
             "bad = sorted(m for m in sys.modules "
             "if m in ('jax', 'flax', 'nesie_tpu') "
             "or m.startswith(('jax.', 'flax.', 'nesie_tpu.'))); "

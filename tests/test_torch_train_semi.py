@@ -169,8 +169,8 @@ def _torch_step(model, data, noise):
     get_pl, reproject = tsemi.get_pseudo_labels, tsemi.reproject_boxes
     get_targets, clip = tsemi.get_targets, tstate.clip_by_global_norm_
 
-    def get_pseudo_labels(teacher_results, acc, cfg):
-        lab = get_pl(teacher_results, acc, cfg)
+    def get_pseudo_labels(teacher_results, acc, cfg, rows=None):
+        lab = get_pl(teacher_results, acc, cfg, rows)
         seen["teacher"] = [teacher_results["aggregated_indices"].numpy(),
                            lab.valid.numpy(), lab.labels.numpy(),
                            lab.quality.numpy()]
