@@ -115,7 +115,29 @@ file; fails without them. In order:
    pretrain checkpoint, 2 epochs of 2 steps, a checkpoint, a resume)
    under NCCL at world size 1 and under gloo at 2 ranks (``ddp_runner``);
    the test CLI at 2 ranks x 16 scenes on ``[runner]``'s semi checkpoint
-   (``ddp_eval``), its metrics against one process at 16 scenes a batch.
+   (``ddp_eval``), its metrics against one process at 16 scenes a batch;
+11. the point-based tail: FPS, the ball query and three-NN at its shapes
+   (the segmentor's 16 and 24 blocks and one request of 8192 -> 1024
+   points, its SA1-SA4 ball queries at r 0.1-0.8, K 32, its four FPs up
+   to 8192 queries over 1024; the VoteHead detector's at 8 x 40000),
+   identical to their plain versions, beside their bounds and, for
+   three-NN, ``torch.topk(torch.cdist)`` (entries under ``tail_by_shape``);
+   then, counts set to 0 before and read after each path, exact per
+   forward: [segmentor] ``PointNet2Segmentor(with_aux=True)`` at its
+   defaults, forward + ``encoder_decoder_loss`` (aux, Lovasz) + backward
+   at 16 blocks (``segmentor_train``: FPS 1, ball query 4, three-NN 4 a
+   forward), ``slide_inference`` over a ~100k-point room at batch 24
+   (``segmentor_slide``), three ``inference_segmentor`` requests
+   (``segmentor_request``), one block against the CPU; [votehead]
+   ``VoteNet()`` at 8 x 40000: eval forwards in both sample modes with
+   ``BinBoxCoder.decode``, ``votehead_supervised_loss`` + backward,
+   ``consistency_losses`` between two forwards under a recorded flip /
+   rotation / scale (``votehead``: FPS 2, ball query 5, three-NN 2 a
+   forward); [paconv] ``PAConvSAModule`` at 16 x 8192 -> 1024 in eval
+   and train mode + backward, ``PointSAModuleMSG`` at two scales
+   (``paconv``); [tta] the flagship ``Detector`` over the 4 views of
+   ``make_tta_views(flip=True)`` and ``merge_aug_bboxes_3d`` beside one
+   plain request (``tta``: 4 requests' launches).
 
 Prints ``{"kernels": [...]}``, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -269,6 +291,17 @@ DDP_BQ_SHAPES = (("semi-step SA1 a rank", 6), ("supervised SA1 a rank", 4),
 DDP_K4_SHAPES = (("semi student side grid a rank", 6, 512 * 96, SEEDS),
                  ("eval side grid a rank", 16, 256 * 96, SEEDS),
                  ("FP1 a rank", 6, FP1["m"], FP1["n"]))
+
+# the point-based tail: the segmentor (PointNet2Segmentor's defaults,
+# mmdet3d's pointnet2_ssg ScanNet widths) on 1.5 m blocks of 8192 points,
+# B=16 in training, batch 24 in slide_inference over a ~100k-point room
+# (sample_rate 0.5), three requests; 5% of the labels ignored (255). The
+# VoteHead detector at VoteNet's ScanNet widths on 8 scenes x 40000
+SEG = dict(b=16, n=8192, block=1.5, slide_batch=24, sample_rate=0.5,
+           room_points=100000, requests=3, timed=5, ignore=0.05)
+SEG_NET = dict(num_points=(1024, 256, 64, 16), radii=(0.1, 0.2, 0.4, 0.8),
+               num_samples=(32, 32, 32, 32))
+VOTE_B = 8
 
 # The rate of fp32 operations that are not FMAs: 132 SMs x 128 lanes x
 # the 1.98 GHz boost clock (the data sheet's 67 TFLOP/s counts an FMA as
@@ -2123,6 +2156,585 @@ def ddp_phase(dev, scenes, nesie: dict, smi: str) -> dict:
     return dict(launches=launches, kernels=kernels)
 
 
+def seg_room(rng, n: int):
+    """A generated room of ``n`` points with the height channel (n, 4) and
+    per-point labels: 2 + (box index mod 18) inside an object's box, 1 on
+    the floor, 0 elsewhere (walls), ``SEG['ignore']`` of them 255."""
+    from nesie_tpu_torch.data import io
+    from nesie_tpu_torch.data.synthetic import make_scene
+
+    pts, boxes = make_scene(rng, n, with_boxes=True)
+    labels = np.where(pts[:, 2] < 0.05, 1, 0)
+    for i, (cx, cy, z0, dx, dy, dz, _) in enumerate(boxes):
+        inside = ((np.abs(pts[:, 0] - cx) <= dx / 2 + 0.01)
+                  & (np.abs(pts[:, 1] - cy) <= dy / 2 + 0.01)
+                  & (pts[:, 2] >= z0 - 0.01) & (pts[:, 2] <= z0 + dz + 0.01))
+        labels[inside] = 2 + i % 18
+    labels[rng.uniform(size=n) < SEG["ignore"]] = 255
+    return io.add_height(pts).astype(np.float32), labels
+
+
+def seg_blocks(rng, b: int):
+    """``b`` training blocks: a 1.5 m square window of a generated room,
+    ``SEG['n']`` of its points (with replacement when fewer), x and y
+    relative to the window's centre, as the segmentor takes them.
+    Returns points (b, n, 4) float32 and labels (b, n) int64."""
+    pts_out, lab_out = [], []
+    while len(pts_out) < b:
+        pts, labels = seg_room(rng, SEG["room_points"] // 4)
+        lo = pts[:, :2].min(0)
+        span = pts[:, :2].max(0) - lo - SEG["block"]
+        corner = lo + rng.uniform(0, 1, 2) * span
+        inside = np.all((pts[:, :2] >= corner)
+                        & (pts[:, :2] <= corner + SEG["block"]), axis=1)
+        idx = np.flatnonzero(inside)
+        if len(idx) < 64:
+            continue
+        pick = rng.choice(idx, SEG["n"], replace=len(idx) < SEG["n"])
+        block = pts[pick].copy()
+        block[:, :2] -= corner + SEG["block"] / 2
+        pts_out.append(block)
+        lab_out.append(labels[pick])
+    return np.stack(pts_out), np.stack(lab_out).astype(np.int64)
+
+
+def tail_kernel_entry(name, tag, out, kernel, plain, bound_ms_by,
+                      library=None):
+    """One kernel shape beside its plain version (identical output) and
+    its bound, and the PyTorch call's time where there is one."""
+    err, k_ms, p_ms = kernel_phase(f"{name} {tag} [tail]", kernel, plain,
+                                   reps=5, plain_reps=1)
+    entry = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms_by[0],
+                 bound_by=bound_ms_by[1], max_abs_err=err,
+                 library_ms=None if library is None else time_ms(library, 3))
+    out.setdefault(name, {})[tag] = entry
+    lib = ("" if library is None
+           else f", torch.topk(torch.cdist) {entry['library_ms']:.4f} ms")
+    print(f"[tail] {name} {tag}: {k_ms:.4f} ms, bound "
+          f"{bound_ms_by[0]:.4f} ms ({bound_ms_by[1]}), plain {p_ms:.4f} ms"
+          f"{lib}")
+
+
+def tail_kernels(dev, blocks, scenes) -> dict:
+    """K1-K4 at the point tail's shapes, each identical to its plain
+    version: the segmentor's FPS (16 and 24 blocks and one request of
+    8192 -> 1024), its four ball queries and four FP three-NNs (B=16),
+    SA1 and the last FP at slide_inference's 24 blocks; the VoteHead
+    detector's SA1 FPS and ball query (8 x 40000), its seed / vote FPS
+    (8 x 1024 -> 256), aggregation ball query and two FPs. Returns the
+    entries by kernel and shape."""
+    import torch
+
+    from nesie_tpu_torch.ops import pointops
+    from nesie_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_ref
+    from nesie_tpu_torch.ops.fps import fps_launch_name, fps_onchip_cuda, fps_ref
+    from nesie_tpu_torch.ops.three_nn import three_nn_cuda, three_nn_ref
+
+    out = {}
+
+    def fps(x, m, what):
+        b, n = x.shape[:2]
+        tail_kernel_entry(fps_launch_name(b), f"{what} B={b} N={n} M={m}",
+                          out, lambda: fps_onchip_cuda(x, m),
+                          lambda: fps_ref(x, m), fps_bound(b, n, m))
+
+    def bq(x, c, r, k, what):
+        b, n, m = x.shape[0], x.shape[1], c.shape[1]
+        idx = ball_query_cuda(x, c, r, k)
+        tail_kernel_entry("ball_query", f"{what} B={b} N={n} M={m} r={r} "
+                          f"K={k}", out, lambda: ball_query_cuda(x, c, r, k),
+                          lambda: ball_query_ref(x, c, r, k),
+                          ball_query_bound(idx, n))
+
+    def nn3(q, s, what):
+        b, m, n = q.shape[0], q.shape[1], s.shape[1]
+        tail_kernel_entry("three_nn", f"{what} B={b} M={m} N={n}", out,
+                          lambda: three_nn_cuda(q, s),
+                          lambda: three_nn_ref(q, s), three_nn_bound(b, m, n),
+                          library=lambda: torch.topk(torch.cdist(q, s), 3,
+                                                     largest=False))
+
+    # the segmentor: SA1 by FPS, SA2-SA4 the FPS prefix
+    for b, what in ((SEG["b"], "segmentor training"),
+                    (SEG["slide_batch"], "slide_inference"),
+                    (1, "inference_segmentor")):
+        x = torch.from_numpy(blocks[:b, :, :3]).to(dev).contiguous()
+        fps(x, SEG_NET["num_points"][0], f"{what} SA1")
+    x = torch.from_numpy(blocks[:SEG["slide_batch"], :, :3]).to(dev)
+    x = x.contiguous()
+    sa = [x, pointops.gather_points(
+        x, fps_onchip_cuda(x, SEG_NET["num_points"][0])).contiguous()]
+    for m in SEG_NET["num_points"][1:]:
+        sa.append(sa[-1][:, :m].contiguous())
+    sb = [s[:SEG["b"]].contiguous() for s in sa]
+    for i, (r, k) in enumerate(zip(SEG_NET["radii"], SEG_NET["num_samples"])):
+        bq(sb[i], sb[i + 1], r, k, f"segmentor SA{i + 1}")
+    bq(sa[0], sa[1], SEG_NET["radii"][0], SEG_NET["num_samples"][0],
+       "slide_inference SA1")
+    for i in range(4, 0, -1):
+        nn3(sb[i - 1], sb[i], f"segmentor FP{5 - i}")
+    nn3(sa[0], sa[1], "slide_inference FP4")
+    del x, sa, sb
+
+    # the VoteHead detector at B=8 x 40000
+    v = torch.from_numpy(np.stack(scenes[:VOTE_B])).to(dev)
+    fps(v, 2048, "VoteHead SA1")
+    c = pointops.gather_points(v, fps_onchip_cuda(v, 2048)).contiguous()
+    bq(v, c, 0.2, 64, "VoteHead SA1")
+    seeds = c[:, :1024].contiguous()
+    votes = (seeds + 0.05 * torch.randn(
+        seeds.shape, generator=torch.Generator(dev).manual_seed(11),
+        device=dev)).contiguous()
+    fps(votes, 256, "VoteHead vote FPS")
+    agg = pointops.gather_points(votes, fps_onchip_cuda(votes, 256))
+    bq(votes, agg.contiguous(), 0.3, 16, "VoteHead aggregation")
+    nn3(seeds, c[:, :512].contiguous(), "VoteHead FP1")
+    nn3(c[:, :512].contiguous(), c[:, :256].contiguous(), "VoteHead FP2")
+    return out
+
+
+def seg_per_forward(b: int) -> dict:
+    """The segmentor's launches a forward of ``b`` blocks: FPS once (SA1;
+    SA2-SA4 take the FPS prefix), the ball query at SA1-SA4, three-NN at
+    the four FPs."""
+    from nesie_tpu_torch.ops.fps import fps_launch_name
+
+    want = {"fps_onchip": 0, "fps_onchip_small": 0, "ball_query": 4,
+            "three_nn": 4}
+    want[fps_launch_name(b)] = 1
+    return want
+
+
+def repeat_counts(want: dict, n: int) -> dict:
+    """Launch counts of ``n`` forwards of ``want`` each."""
+    return {k: v * n for k, v in want.items()}
+
+
+def segmentor_phase(dev, blocks, labels) -> dict:
+    """[segmentor]: ``PointNet2Segmentor()`` (mmdet3d's pointnet2_ssg
+    ScanNet widths, with the auxiliary head) on 1.5 m blocks of 8192
+    points. Paths, counts set to 0 before and read after each:
+    ``segmentor_train`` (forward + encoder_decoder_loss with aux and
+    Lovasz + backward at B=16, a warm-up and SEG['timed'] timed),
+    ``segmentor_slide`` (slide_inference over one generated room at
+    batch 24), ``segmentor_request`` (three inference_segmentor
+    requests); then one block's forward on the card against the CPU."""
+    import torch
+
+    from nesie_tpu_torch.apis import inference_segmentor
+    from nesie_tpu_torch.nn.detector import init_weights_flax_, randomize_bn_
+    from nesie_tpu_torch.nn.segmentor import (
+        PointNet2Segmentor,
+        encoder_decoder_loss,
+        segmentor_apply_fn,
+        slide_inference,
+    )
+    from nesie_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(20)
+    model = PointNet2Segmentor(with_aux=True)
+    init_weights_flax_(model, gen)
+    randomize_bn_(model, gen)
+    model = model.to(dev)
+    b = SEG["b"]
+    pts = torch.from_numpy(blocks[:b]).to(dev)
+    lab = torch.from_numpy(labels[:b]).to(dev)
+    drop = torch.Generator(dev).manual_seed(21)
+    out_info = {}
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        out = model(pts, generator=drop)
+        loss = encoder_decoder_loss(out, lab, use_lovasz=True)
+        loss.backward()
+        return loss
+
+    model.train()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, loss = timed_steps(step, SEG["timed"])
+    launches = {"segmentor_train": _build.launch_counts()}
+    # ----- end of the segmentor_train path
+    check_counts(launches["segmentor_train"], "segmentor_train",
+                 repeat_counts(seg_per_forward(b), 1 + SEG["timed"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not torch.isfinite(loss):
+        raise AssertionError(f"segmentor loss {loss.item()} is not finite")
+    for name, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"segmentor: gradient of {name} missing or "
+                                 "not finite")
+    aux_grad = model.aux_cls.weight.grad.abs().sum().item()
+    if not aux_grad > 0:
+        raise AssertionError("the auxiliary head received no gradient")
+    out_info["train_ms"] = float(np.median(step_ms))
+    print(f"[segmentor] train step (forward + encoder_decoder_loss with aux "
+          f"and Lovasz + backward) B={b} x {SEG['n']} x 4: median "
+          f"{out_info['train_ms']:.3f} ms over {SEG['timed']} ({step_ms}), "
+          f"loss {loss.item():.4f}, peak {peak:.3f} GiB, |aux grad| "
+          f"{aux_grad:.4e}; every gradient finite")
+
+    model.eval()
+    room, room_labels = seg_room(np.random.default_rng(22),
+                                 SEG["room_points"])
+    calls = [0]
+    apply_fn = segmentor_apply_fn(model, dev)
+
+    def counted(chunk):
+        calls[0] += 1
+        return apply_fn(chunk)
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = slide_inference(room, counted, SEG["n"], SEG["block"],
+                             sample_rate=SEG["sample_rate"],
+                             batch_size=SEG["slide_batch"])
+    slide_s = time.perf_counter() - t0
+    launches["segmentor_slide"] = _build.launch_counts()
+    # ----- end of the segmentor_slide path
+    check_counts(launches["segmentor_slide"], "segmentor_slide",
+                 repeat_counts(seg_per_forward(SEG["slide_batch"]), calls[0]))
+    if logits.shape != (len(room), 20) or not np.isfinite(logits).all():
+        raise AssertionError(f"slide_inference: logits {logits.shape} or "
+                             "not finite")
+    pred = logits.argmax(-1)
+    out_info["slide_ms"] = slide_s * 1e3
+    print(f"[segmentor] slide_inference over {len(room)} points (block "
+          f"{SEG['block']}, sample_rate {SEG['sample_rate']}, batch "
+          f"{SEG['slide_batch']}): {slide_s * 1e3:.1f} ms a scene, "
+          f"{calls[0]} batches of {SEG['slide_batch']}; every point covered "
+          f"(slide_inference checks it); "
+          f"seg_eval mIoU {seg_eval_miou(pred, room_labels):.4f} (random "
+          "weights)")
+
+    requests = [seg_room(np.random.default_rng(30 + i), 50000)[0][:, :3]
+                for i in range(SEG["requests"])]
+    _build.reset_launch_counts()
+    req_ms = []
+    for cloud in requests:
+        t0 = time.perf_counter()
+        res = inference_segmentor(model, cloud, num_points=SEG["n"])
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+        if res["seg_logits"].shape != (SEG["n"], 20) or not np.isfinite(
+                res["seg_logits"]).all():
+            raise AssertionError("inference_segmentor: bad logits")
+    launches["segmentor_request"] = _build.launch_counts()
+    # ----- end of the segmentor_request path
+    check_counts(launches["segmentor_request"], "segmentor_request",
+                 repeat_counts(seg_per_forward(1), SEG["requests"]))
+    out_info["request_ms"] = req_ms
+    print(f"[segmentor] inference_segmentor requests ({SEG['n']} points): "
+          f"{', '.join(f'{t:.3f}' for t in req_ms)} ms")
+
+    cpu_model = copy.deepcopy(model).cpu()  # BN statistics as trained
+    with torch.inference_mode():
+        one = pts[:1]
+        g_feat = model.backbone(one)
+        gpu = model(one)["seg_logits"][0].cpu()
+        c_feat = cpu_model.backbone(one.cpu())
+        cpu = cpu_model(one.cpu())["seg_logits"][0]
+    for i, (g, c) in enumerate(zip(g_feat["sa_indices"], c_feat["sa_indices"])):
+        if not torch.equal(g.cpu(), c):
+            raise AssertionError(f"segmentor SA{i} indices differ from the CPU")
+    ok = ((gpu - cpu).abs() <= ATOL + RTOL * cpu.abs()).all(dim=1)
+    share, worst = ok.float().mean().item(), (gpu - cpu).abs().max().item()
+    print(f"[segmentor] one block on the card vs the CPU: indices identical, "
+          f"{share:.4f} of points agree within atol {ATOL} + rtol {RTOL}, "
+          f"max |diff| {worst:.3e}")
+    if share < MIN_AGREE:
+        raise AssertionError(f"segmentor: only {share:.4f} of points agree")
+    out_info.update(peak_gib=peak, gpu_cpu_share=share, gpu_cpu_worst=worst)
+    print(f"[segmentor] phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=launches, info=out_info)
+
+
+def seg_eval_miou(pred, gt) -> float:
+    from nesie_tpu_torch.eval.seg_metrics import seg_eval
+
+    return seg_eval([pred], [gt], 20)["mIoU"]
+
+
+def vote_per_forward() -> dict:
+    """The VoteHead detector's launches a forward at B=8: FPS at SA1 and
+    the seed / vote FPS, the ball query at SA1-SA4 and the aggregation,
+    three-NN at FP1 and FP2."""
+    return {"fps_onchip": 0, "fps_onchip_small": 2, "ball_query": 5,
+            "three_nn": 2}
+
+
+def votehead_phase(dev, scenes) -> dict:
+    """[votehead]: ``VoteNet()`` (PointNet2SASSG + the legacy VoteHead at
+    VoteNet's ScanNet widths) at B=8 x 40000, counts set to 0 before and
+    read after (path ``votehead``): the eval forward in ``vote`` mode
+    (a warm-up and 5 timed) and in ``seed`` mode, ``BinBoxCoder.decode``;
+    ``votehead_supervised_loss`` + backward on generated GT; two forwards
+    of the same batch, the second under a recorded flip / rotation /
+    scale, into ``consistency_losses`` with ``decode_votenet_size``."""
+    import torch
+
+    from nesie_tpu_torch.data import io
+    from nesie_tpu_torch.data.synthetic import class_size_prototypes, make_scene
+    from nesie_tpu_torch.losses.consistency import (
+        consistency_losses,
+        decode_votenet_size,
+    )
+    from nesie_tpu_torch.nn.detector import init_weights_, randomize_bn_
+    from nesie_tpu_torch.nn.vote_head import VoteNet
+    from nesie_tpu_torch.ops import _build
+    from nesie_tpu_torch.train.targets import get_targets
+    from nesie_tpu_torch.train.votehead_loss import (
+        VoteHeadLossConfig,
+        votehead_supervised_loss,
+    )
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(40)
+    model = VoteNet()
+    init_weights_(model, gen)
+    randomize_bn_(model, gen)
+    model = model.to(dev).eval()
+    mean_sizes = class_size_prototypes(18)
+    coder = model.bbox_head.coder(mean_sizes)
+    pts = torch.from_numpy(np.stack([io.add_height(s) for s in
+                                     scenes[:VOTE_B]]).astype(np.float32))
+    pts = pts.to(dev)
+    info, forwards = {}, 0
+
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        ms, out = timed_steps(lambda: model(pts, "vote"), 5)
+        boxes = coder.decode(out["aggregated_points"], out)
+        seed_out = model(pts, "seed")
+        seed_boxes = coder.decode(seed_out["aggregated_points"], seed_out)
+    forwards += 7
+    for what, b in (("vote", boxes), ("seed", seed_boxes)):
+        if b.shape != (VOTE_B, 256, 7) or not torch.isfinite(b).all() or not (
+                b[..., 3:6] >= 0.1).all():
+            raise AssertionError(f"VoteHead {what}: decoded boxes")
+    info["eval_ms"] = float(np.median(ms))
+    print(f"[votehead] eval forward B={VOTE_B} x {N_POINTS} x 4 (vote): "
+          f"median {info['eval_ms']:.3f} ms over 5 ({ms}); decode and the "
+          "seed mode's boxes finite")
+
+    rng = np.random.default_rng(41)
+    gt = np.zeros((VOTE_B, SEMI["max_gt"], 7), np.float32)
+    gt_labels = np.zeros((VOTE_B, SEMI["max_gt"]), np.int64)
+    gt_valid = np.zeros((VOTE_B, SEMI["max_gt"]), bool)
+    for i in range(VOTE_B):
+        _, bx = make_scene(np.random.default_rng(i), N_POINTS,
+                           with_boxes=True)
+        gt[i, :len(bx)] = bx
+        gt_labels[i, :len(bx)] = rng.integers(0, 18, len(bx))
+        gt_valid[i, :len(bx)] = True
+    model.train()
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model(pts, "vote")
+    forwards += 1
+    targets = get_targets(pts, torch.from_numpy(gt).to(dev),
+                          torch.from_numpy(gt_labels).to(dev),
+                          torch.from_numpy(gt_valid).to(dev),
+                          out["aggregated_points"])
+    total, terms = votehead_supervised_loss(out, targets, mean_sizes,
+                                            VoteHeadLossConfig())
+    total.backward()
+    torch.cuda.synchronize()
+    info["loss_ms"] = (time.perf_counter() - t0) * 1e3
+    check_finite({**terms, "total": total}, model, "votehead loss")
+    print(f"[votehead] forward + votehead_supervised_loss + backward "
+          f"(train mode): {info['loss_ms']:.3f} ms; terms "
+          + ", ".join(f"{k} {v.item():.4f}" for k, v in terms.items()))
+
+    # consistency: the teacher on the batch, the student on it under a
+    # recorded flip / rotation / scale
+    flip_x = torch.from_numpy(rng.uniform(size=VOTE_B) < 0.5).to(dev)
+    flip_y = torch.from_numpy(rng.uniform(size=VOTE_B) < 0.5).to(dev)
+    ang = rng.uniform(-np.pi / 6, np.pi / 6, VOTE_B)
+    rot = np.zeros((VOTE_B, 3, 3), np.float32)
+    rot[:, 0, 0], rot[:, 0, 1] = np.cos(ang), -np.sin(ang)
+    rot[:, 1, 0], rot[:, 1, 1] = np.sin(ang), np.cos(ang)
+    rot[:, 2, 2] = 1.0
+    rot = torch.from_numpy(rot).to(dev)
+    scale = torch.from_numpy(rng.uniform(0.85, 1.15, (VOTE_B, 1, 3)).astype(
+        np.float32)).to(dev)
+    xyz = pts[..., :3].clone()
+    xyz[..., 0] = torch.where(flip_x[:, None], -xyz[..., 0], xyz[..., 0])
+    xyz[..., 1] = torch.where(flip_y[:, None], -xyz[..., 1], xyz[..., 1])
+    xyz = torch.einsum("bpj,bij->bpi", xyz, rot) * scale
+    student_pts = torch.cat([xyz, pts[..., 3:]], -1).contiguous()
+    model.eval()
+    with torch.no_grad():
+        teacher = model(pts, "vote")
+    student = model(student_pts, "vote")
+    forwards += 2
+    size = decode_votenet_size(student["size_class"], student["size_res"],
+                               mean_sizes)
+    ema_size = decode_votenet_size(teacher["size_class"], teacher["size_res"],
+                                   mean_sizes)
+    ctotal, cterms = consistency_losses(
+        student["aggregated_points"] + student["center_offset"],
+        student["sem_scores"], size,
+        teacher["aggregated_points"] + teacher["center_offset"],
+        teacher["sem_scores"], ema_size, flip_x, flip_y, rot, scale)
+    ctotal.backward()
+    launches = {"votehead": _build.launch_counts()}
+    # ----- end of the votehead path
+    check_counts(launches["votehead"], "votehead",
+                 repeat_counts(vote_per_forward(), forwards))
+    for k, v in {**cterms, "total": ctotal}.items():
+        if not torch.isfinite(v):
+            raise AssertionError(f"consistency {k} = {v.item()}")
+    print("[votehead] consistency_losses (teacher vs flipped / rotated / "
+          "scaled student, decode_votenet_size): "
+          + ", ".join(f"{k} {v.item():.4f}" for k, v in cterms.items()))
+    print(f"[votehead] {forwards} forwards; phase "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=launches, info=info)
+
+
+def paconv_phase(dev, blocks) -> dict:
+    """[paconv]: ``PAConvSAModule`` at B=16 x 8192 -> 1024 centres (r 0.1,
+    K 32, PAConv layers 4 -> 32 -> 32 -> 64 with 16 kernels each,
+    scorenet (16, 16, 16), ``w_neighbor`` / ``w_neighbor_dist``): the
+    forward in eval and in train mode + backward; ``PointSAModuleMSG`` at
+    the same centres with two scales. Counts set to 0 before and read
+    after (path ``paconv``)."""
+    import torch
+
+    from nesie_tpu_torch.nn.detector import init_weights_flax_, randomize_bn_
+    from nesie_tpu_torch.nn.pointnet2 import PAConvSAModule, PointSAModuleMSG
+    from nesie_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(50)
+    pa = PAConvSAModule(1024, 0.1, 32, (1, 32, 32, 64), (16, 16, 16))
+    msg = PointSAModuleMSG(1024, (0.1, 0.2), (16, 32), 1,
+                           ((16, 16, 32), (32, 32, 64)))
+    for m in (pa, msg):
+        init_weights_flax_(m, gen)
+        randomize_bn_(m, gen)
+    pa, msg = pa.to(dev), msg.to(dev)
+    x = torch.from_numpy(blocks[:SEG["b"]]).to(dev)
+    xyz, feats = x[..., :3].contiguous(), x[..., 3:].contiguous()
+    info = {}
+
+    def train_step():
+        pa.zero_grad(set_to_none=True)
+        _, out, _ = pa(xyz, feats)
+        out.square().mean().backward()
+        return out
+
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pa.eval()
+    with torch.inference_mode():
+        eval_ms, out = timed_steps(lambda: pa(xyz, feats)[1], 3)
+    pa.train()
+    train_ms, out_t = timed_steps(train_step, 3)
+    msg.eval()
+    with torch.inference_mode():
+        msg_ms, out_m = timed_steps(lambda: msg(xyz, feats)[1], 3)
+    launches = {"paconv": _build.launch_counts()}
+    # ----- end of the paconv path
+    check_counts(launches["paconv"], "paconv",
+                 {"fps_onchip": 0, "fps_onchip_small": 12, "ball_query": 16,
+                  "three_nn": 0})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for what, o, c in (("eval", out, 64), ("train", out_t, 64),
+                       ("MSG", out_m, 96)):
+        if o.shape != (SEG["b"], 1024, c) or not torch.isfinite(o).all():
+            raise AssertionError(f"PAConv {what}: {tuple(o.shape)} or not "
+                                 "finite")
+    for name, p in pa.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"PAConv: gradient of {name}")
+    info.update(eval_ms=float(np.median(eval_ms)),
+                train_ms=float(np.median(train_ms)),
+                msg_ms=float(np.median(msg_ms)), peak_gib=peak)
+    print(f"[paconv] PAConvSAModule B={SEG['b']} x {SEG['n']} -> 1024: eval "
+          f"{info['eval_ms']:.3f} ms, train forward + backward "
+          f"{info['train_ms']:.3f} ms (medians of 3), peak {peak:.3f} GiB; "
+          f"PointSAModuleMSG (2 scales) eval {info['msg_ms']:.3f} ms; "
+          f"phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=launches, info=info)
+
+
+def tta_phase(dev, weights) -> dict:
+    """[tta]: the flagship ``Detector`` over ``make_tta_views(flip=True)``
+    (4 views of one 40000-point scene) merged by ``merge_aug_bboxes_3d``,
+    counts set to 0 before and read after (path ``tta``: 4 x a request's
+    launches), beside one plain request."""
+    import torch
+
+    from nesie_tpu_torch.apis import init_detector
+    from nesie_tpu_torch.data.synthetic import make_scene
+    from nesie_tpu_torch.eval.tta import apply_view_np, make_tta_views, merge_aug_bboxes_3d
+    from nesie_tpu_torch.ops import _build
+
+    detector = init_detector(weights, device=dev)
+    cloud = make_scene(np.random.default_rng(60), N_POINTS)
+    detector(cloud)  # warm-up
+    t0 = time.perf_counter()
+    plain = detector(cloud)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    views = make_tta_views(flip=True)
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = []
+    for view in views:
+        r = detector(apply_view_np(cloud, *view))
+        results.append(dict(boxes=r["boxes_3d"], scores=r["scores_3d"],
+                            labels=r["labels_3d"]))
+    views_ms = (time.perf_counter() - t0) * 1e3
+    merged = merge_aug_bboxes_3d(results, views)
+    tta_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"tta": _build.launch_counts()}
+    # ----- end of the tta path
+    check_counts(launches["tta"], "tta",
+                 {"fps_onchip": 0, "fps_onchip_small": len(views),
+                  "ball_query": SAQE_BQ_PER_FORWARD * len(views),
+                  "three_nn": 4 * len(views)})
+    if not (np.isfinite(merged["boxes"]).all()
+            and np.isfinite(merged["scores"]).all()):
+        raise AssertionError("TTA: non-finite merged boxes")
+    print(f"[tta] {len(views)} views: {views_ms:.3f} ms of requests, "
+          f"{tta_ms:.3f} ms with merge_aug_bboxes_3d "
+          f"({sum(len(r['boxes']) for r in results)} boxes in, "
+          f"{len(merged['boxes'])} merged) against one plain request "
+          f"{plain_ms:.3f} ms ({len(plain['boxes_3d'])} boxes)")
+    return dict(launches=launches, info=dict(tta_ms=tta_ms,
+                                             views_ms=views_ms,
+                                             plain_ms=plain_ms))
+
+
+def tail_phase(dev, scenes, weights) -> dict:
+    """The point tail's kernels and its four phases. Returns the launches
+    by path, the kernel entries by shape and the phases' numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    blocks, labels = seg_blocks(np.random.default_rng(70), SEG["slide_batch"])
+    print(f"[tail] {len(blocks)} blocks generated: "
+          f"{time.perf_counter() - t0:.2f} s")
+    kernels = tail_kernels(dev, blocks, scenes)
+    torch.cuda.empty_cache()
+    launches, info = {}, {}
+    for name, run in (("segmentor", lambda: segmentor_phase(dev, blocks,
+                                                            labels)),
+                      ("votehead", lambda: votehead_phase(dev, scenes)),
+                      ("paconv", lambda: paconv_phase(dev, blocks)),
+                      ("tta", lambda: tta_phase(dev, weights))):
+        res = run()
+        launches.update(res["launches"])
+        info[name] = res["info"]
+        torch.cuda.empty_cache()
+    print(f"[tail] launches by path: {launches}")
+    return dict(launches=launches, kernels=kernels, info=info)
+
+
 def make_scene_points(i: int, n: int):
     """Room ``i`` of the SUN RGB-D forward's batch, ``n`` points."""
     from nesie_tpu_torch.data.synthetic import make_scene
@@ -2465,6 +3077,11 @@ def main() -> int:
     ddp = ddp_phase(dev, scenes, bare, smi)
     launches.update(ddp["launches"])
 
+    # ---- 11. the point-based tail ---------------------------------------
+    torch.cuda.empty_cache()
+    tail = tail_phase(dev, scenes, weights)
+    launches.update(tail["launches"])
+
     sources = {
         "fps_onchip": ("nesie_tpu_torch/csrc/fps_onchip.cu",
                        "nesie_tpu/ops/pallas_fps.py:73"),
@@ -2510,6 +3127,8 @@ def main() -> int:
             entry["options_by_shape"] = options["kernels"][name]
         if name in ddp["kernels"]:
             entry["ddp_by_shape"] = ddp["kernels"][name]
+        if name in tail["kernels"]:
+            entry["tail_by_shape"] = tail["kernels"][name]
         kernels.append(entry)
     for entry in lab_entries:
         by_path = {path: n["fps_variant"] for path, n in launches.items()}

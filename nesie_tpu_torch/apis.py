@@ -1,5 +1,6 @@
 """High-level inference API. Counterpart of ``nesie_tpu/apis.py``
-(``Detector``, ``init_detector``, ``inference_detector``).
+(``Detector``, ``init_detector``, ``inference_detector``,
+``inference_segmentor``).
 
 ``init_detector`` builds the port's VoteNetNesie (Nesie or SAQE head) on
 an explicit device. In the JAX package's form it takes a config name
@@ -131,3 +132,27 @@ def _detector_from_config(name, checkpoint_dir, device, teacher,
 
 def inference_detector(detector: Detector, points) -> dict:
     return detector(points)
+
+
+@torch.inference_mode()
+def inference_segmentor(model: torch.nn.Module, points, num_points=None,
+                        seed: int = 0) -> dict:
+    """Per-point semantic labels of one cloud (the JAX package's
+    ``inference_segmentor``): points (N, >=3) numpy or a .bin/.npy path,
+    the height feature added, ``num_points`` of them sampled with
+    ``np.random.default_rng(seed)`` when given; ``model`` (a
+    ``nn.segmentor.PointNet2Segmentor`` in eval mode) runs on its own
+    device. Returns dict(semantic_mask (N',), seg_logits (N', classes),
+    points (N', 4)) as numpy arrays."""
+    if isinstance(points, (str, Path)):
+        p = Path(points)
+        points = np.load(p) if p.suffix == ".npy" else io.load_points_bin(p)
+    pts = io.add_height(np.asarray(points, np.float32)[:, :3])
+    if num_points is not None:
+        pts = io.sample_points(pts, num_points, np.random.default_rng(seed))
+    device = next(model.parameters()).device
+    out = model(torch.from_numpy(np.ascontiguousarray(pts))[None].to(device))
+    logits = out["seg_logits"] if isinstance(out, dict) else out
+    logits = logits[0].cpu().numpy()
+    return dict(semantic_mask=np.argmax(logits, axis=-1), seg_logits=logits,
+                points=pts)

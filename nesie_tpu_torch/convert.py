@@ -2,8 +2,10 @@
 checkpoints.
 
 ``state_dict_from_flax`` maps the JAX package's VoteNetNesie variables
-(nested dicts of numpy arrays; Nesie or SAQE head), or a params-shaped
-tree alone, onto the port's ``state_dict``. The port's
+(nested dicts of numpy arrays; Nesie or SAQE head), a PointNet2SASSG +
+VoteHead detector's or a PointNet2Segmentor's, or a params-shaped tree
+alone, onto the port's ``state_dict``; ``module_state_dict_from_flax``
+one SA module's (plain, MSG, PAConv) or conv head's. The port's
 names are the reference's, so ``nesie_tpu.convert_torch.convert_state_dict``
 maps the port's ``state_dict()`` back: the two are inverses.
 
@@ -47,14 +49,132 @@ def _bn(sd: dict, prefix: str, params: dict, stats) -> None:
     sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
 
 
-def _point_mlp(sd, prefix, params, stats, name="layer{}"):
-    """flax PointMLP dense{j}/norm{j} -> ``<prefix>.<name>.conv/bn``."""
+def _gn(sd: dict, prefix: str, params: dict) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(params["scale"], np.float32)
+    sd[f"{prefix}.bias"] = np.asarray(params["bias"], np.float32)
+
+
+def _point_mlp(sd, prefix, params, stats, name="layer{}", norm="bn"):
+    """flax PointMLP dense{j}/norm{j} -> ``<prefix>.<name>.conv`` and
+    ``.bn`` (``.gn`` with ``norm="gn"``); a layer without norm{j} (the
+    last of a ``final_activation=False`` stack) is its conv alone."""
     j = 0
     while f"dense{j}" in params:
         t = f"{prefix}.{name.format(j)}"
         _linear(sd, f"{t}.conv", params[f"dense{j}"])
-        _bn(sd, f"{t}.bn", params[f"norm{j}"], _sub(stats, f"norm{j}"))
+        if f"norm{j}" in params:
+            if norm == "gn":
+                _gn(sd, f"{t}.gn", params[f"norm{j}"])
+            else:
+                _bn(sd, f"{t}.bn", params[f"norm{j}"],
+                    _sub(stats, f"norm{j}"))
         j += 1
+
+
+def _paconv(sd, prefix, params, stats):
+    """flax PAConv -> ``<prefix>.weight_bank`` (same layout), ``.bn`` and
+    ``.scorenet.mlps.layer{i}.conv/.bn``."""
+    sd[f"{prefix}.weight_bank"] = np.asarray(params["weight_bank"], np.float32)
+    if "bn" in params:
+        _bn(sd, f"{prefix}.bn", params["bn"], _sub(stats, "bn"))
+    sp, ss = params["scorenet"], _sub(stats, "scorenet")
+    i = 0
+    while f"layer{i}_conv" in sp:
+        t = f"{prefix}.scorenet.mlps.layer{i}"
+        _linear(sd, f"{t}.conv", sp[f"layer{i}_conv"])
+        if f"layer{i}_bn" in sp:
+            _bn(sd, f"{t}.bn", sp[f"layer{i}_bn"], _sub(ss, f"layer{i}_bn"))
+        i += 1
+
+
+def _sa(sd, prefix, params, stats):
+    """Any of the three SA modules: PointSAModule (``mlp``),
+    PointSAModuleMSG (``mlp{i}``) or PAConvSAModule (``layer{i}``)."""
+    if "mlp" in params:
+        _point_mlp(sd, f"{prefix}.mlps.0", params["mlp"], _sub(stats, "mlp"))
+        return
+    i = 0
+    while f"mlp{i}" in params:
+        _point_mlp(sd, f"{prefix}.mlps.{i}", params[f"mlp{i}"],
+                   _sub(stats, f"mlp{i}"))
+        i += 1
+    i = 0
+    while f"layer{i}" in params:
+        _paconv(sd, f"{prefix}.mlps.0.layer{i}", params[f"layer{i}"],
+                _sub(stats, f"layer{i}"))
+        i += 1
+
+
+def _backbone(sd, prefix, bp, bs):
+    """PointNet2SASSG: sa{i} -> SA_modules.{i}, fp{i} -> FP_modules.{i}."""
+    i = 0
+    while f"sa{i}" in bp:
+        _sa(sd, f"{prefix}.SA_modules.{i}", bp[f"sa{i}"], _sub(bs, f"sa{i}"))
+        i += 1
+    i = 0
+    while f"fp{i}" in bp:
+        _point_mlp(sd, f"{prefix}.FP_modules.{i}.mlps", bp[f"fp{i}"]["mlp"],
+                   _sub(bs, f"fp{i}", "mlp"))
+        i += 1
+
+
+def _conv_head(sd, prefix, params, stats):
+    """BaseConvBboxHead or ReliableConvBboxHead: ``shared`` and the branch
+    stacks that are there (``heading_convs`` with GroupNorm), then every
+    output Linear."""
+    if "shared" in params:
+        _point_mlp(sd, f"{prefix}.shared_convs", params["shared"],
+                   _sub(stats, "shared"))
+    for stack in ("cls_convs", "reg_convs", "bbox_convs"):
+        if stack in params:
+            _point_mlp(sd, f"{prefix}.{stack}", params[stack],
+                       _sub(stats, stack))
+    if "heading_convs" in params:  # GroupNorm: no running statistics
+        _point_mlp(sd, f"{prefix}.heading_convs", params["heading_convs"],
+                   None, norm="gn")
+    for name in ("conv_cls", "conv_reg", "conv_bbox", "conv_heading"):
+        if name in params:
+            _linear(sd, f"{prefix}.{name}", params[name])
+
+
+def _tensors(sd: dict) -> dict:
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def module_state_dict_from_flax(params: dict,
+                                batch_stats: dict | None = None) -> dict:
+    """One module's flax variables -> the port module's state_dict: a
+    PointSAModule, PointSAModuleMSG or PAConvSAModule, or a
+    BaseConvBboxHead or ReliableConvBboxHead (told apart by their keys)."""
+    sd: dict = {}
+    if "shared" in params or "conv_cls" in params:
+        _conv_head(sd, "x", params, batch_stats)
+    else:
+        _sa(sd, "x", params, batch_stats)
+    return _tensors({k[2:]: v for k, v in sd.items()})
+
+
+def _segmentor(sd, params, stats):
+    _backbone(sd, "backbone", params["backbone"], _sub(stats, "backbone"))
+    _point_mlp(sd, "fp_final.mlps", params["fp_final"]["mlp"],
+               _sub(stats, "fp_final", "mlp"))
+    for head, cls in (("head", "cls"), ("aux_head", "aux_cls")):
+        if head in params:
+            _point_mlp(sd, head, params[head], _sub(stats, head))
+            _linear(sd, cls, params[cls])
+
+
+def _votenet(sd, params, stats):
+    _backbone(sd, "backbone", params["backbone"], _sub(stats, "backbone"))
+    hp, hs = params["bbox_head"], _sub(stats, "bbox_head")
+    _point_mlp(sd, "bbox_head.vote_module.vote_conv",
+               hp["vote_module"]["trunk"], _sub(hs, "vote_module", "trunk"),
+               name="{}")
+    _linear(sd, "bbox_head.vote_module.conv_out", hp["vote_module"]["out"])
+    _sa(sd, "bbox_head.vote_aggregation", hp["vote_aggregation"],
+        _sub(hs, "vote_aggregation"))
+    _point_mlp(sd, "bbox_head.trunk", hp["trunk"], _sub(hs, "trunk"))
+    _linear(sd, "bbox_head.conv_out", hp["conv_out"])
 
 
 def _mini_pointnet(sd, prefix, params, stats):
@@ -82,26 +202,25 @@ def _saqe_side_head(sd, prefix, trunk_p, trunk_s, out):
 
 
 def state_dict_from_flax(params: dict, batch_stats: dict | None = None) -> dict:
-    """JAX VoteNetNesie variables, Nesie or SAQE head (told apart by the
-    quality module's ``global_trunk``), -> the port's state_dict (name ->
-    torch.Tensor).
+    """JAX model variables -> the port's state_dict (name ->
+    torch.Tensor): VoteNetNesie, Nesie or SAQE head (told apart by the
+    quality module's ``global_trunk``); a PointNet2SASSG + VoteHead
+    detector (``nn.vote_head.VoteNet``: its head has ``conv_out``); or a
+    PointNet2Segmentor, with or without its auxiliary head (``fp_final``).
 
     With ``batch_stats=None`` only the parameters are mapped, so that a
     params-shaped tree (gradients, an optimizer's moments, the EMA
     teacher's ``ema_params``) lands on the port's parameter names; BN
     running statistics are then left out."""
     sd: dict = {}
-    bp, bs = params["backbone"], _sub(batch_stats, "backbone")
-    i = 0
-    while f"sa{i}" in bp:
-        _point_mlp(sd, f"backbone.SA_modules.{i}.mlps.0", bp[f"sa{i}"]["mlp"],
-                   _sub(bs, f"sa{i}", "mlp"))
-        i += 1
-    i = 0
-    while f"fp{i}" in bp:
-        _point_mlp(sd, f"backbone.FP_modules.{i}.mlps", bp[f"fp{i}"]["mlp"],
-                   _sub(bs, f"fp{i}", "mlp"))
-        i += 1
+    if "fp_final" in params:
+        _segmentor(sd, params, batch_stats)
+        return _tensors(sd)
+    if "conv_out" in params["bbox_head"]:
+        _votenet(sd, params, batch_stats)
+        return _tensors(sd)
+    _backbone(sd, "backbone", params["backbone"],
+              _sub(batch_stats, "backbone"))
 
     hp, hs = params["bbox_head"], _sub(batch_stats, "bbox_head")
     _point_mlp(sd, "bbox_head.vote_module.vote_conv",
@@ -111,11 +230,8 @@ def state_dict_from_flax(params: dict, batch_stats: dict | None = None) -> dict:
     _point_mlp(sd, "bbox_head.vote_aggregation.mlps.0",
                hp["vote_aggregation"]["mlp"],
                _sub(hs, "vote_aggregation", "mlp"))
-    cp, cs = hp["conv_pred"], _sub(hs, "conv_pred")
-    _point_mlp(sd, "bbox_head.conv_pred.shared_convs", cp["shared"],
-               _sub(cs, "shared"))
-    for name in ("conv_cls", "conv_bbox", "conv_heading"):
-        _linear(sd, f"bbox_head.conv_pred.{name}", cp[name])
+    _conv_head(sd, "bbox_head.conv_pred", hp["conv_pred"],
+               _sub(hs, "conv_pred"))
 
     gp, gs = hp["grid_conv"], _sub(hs, "grid_conv")
     saqe = "global_trunk" in gp  # SAQE's QualityEstimation
@@ -130,7 +246,7 @@ def state_dict_from_flax(params: dict, batch_stats: dict | None = None) -> dict:
         convert = _saqe_side_head if saqe and i < 6 else _quality_head
         convert(sd, f"bbox_head.grid_conv.mlps_head.{i}", gp[trunk],
                 _sub(gs, trunk), gp[out])
-    return {k: torch.tensor(v) for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def load_reference_state_dict(path, model: torch.nn.Module) -> dict:

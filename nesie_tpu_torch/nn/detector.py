@@ -8,6 +8,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from nesie_tpu_torch.ops.paconv import PAConv
 from .nesie_head import NesieHead
 from .pointnet2 import PointNet2SASSG
 from .saqe_head import SAQEHead
@@ -88,8 +89,9 @@ class VoteNetNesie(nn.Module):
 
 @torch.no_grad()
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded weights: every Linear as torch's default (uniform in
-    +-1/sqrt(fan_in)), BN at weight 1, bias 0, mean 0, var 1."""
+    """Seeded weights: every Linear and PAConv weight bank as torch's
+    default Linear (uniform in +-1/sqrt(fan_in)), BN at weight 1, bias 0,
+    mean 0, var 1."""
     for m in model.modules():
         if isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)
@@ -98,25 +100,28 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.copy_(_uniform(m.bias.shape, bound, generator))
         elif isinstance(m, nn.BatchNorm1d):
             m.reset_parameters()
+        elif isinstance(m, PAConv):
+            bound = 1.0 / math.sqrt(m.weight_bank.shape[0])
+            m.weight_bank.copy_(_uniform(m.weight_bank.shape, bound,
+                                         generator))
 
 
 @torch.no_grad()
 def init_weights_flax_(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded weights from flax's default initializers, the distributions
-    the JAX package's ``init_state`` draws from: every Linear weight
-    ``lecun_normal`` (a standard normal truncated at +-2, scaled to
-    variance 1/fan_in), biases 0; BN at weight 1, bias 0, mean 0, var 1."""
+    the JAX package's ``init_state`` draws from: every Linear weight and
+    PAConv weight bank ``lecun_normal`` (a standard normal truncated at
+    +-2, scaled to variance 1/fan_in), biases 0; BN at weight 1, bias 0,
+    mean 0, var 1."""
     for m in model.modules():
         if isinstance(m, nn.Linear):
-            # 0.8796...: the standard deviation of a standard normal
-            # truncated at +-2 (jax.nn.initializers.variance_scaling)
-            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
+            _lecun_normal_(m.weight, m.in_features, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm1d):
             m.reset_parameters()
+        elif isinstance(m, PAConv):  # (in, out) layout: fan-in is rows
+            _lecun_normal_(m.weight_bank, m.weight_bank.shape[0], generator)
 
 
 @torch.no_grad()
@@ -130,6 +135,15 @@ def randomize_bn_(model: nn.Module, generator: torch.Generator) -> None:
             m.bias.copy_(_uniform((n,), 0.5, generator))
             m.running_mean.copy_(_uniform((n,), 0.5, generator))
             m.running_var.copy_(_uniform((n,), 0.5, generator) + 1.0)
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> None:
+    # 0.8796...: the standard deviation of a standard normal truncated at
+    # +-2 (jax.nn.initializers.variance_scaling)
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
 
 
 def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:

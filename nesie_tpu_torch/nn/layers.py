@@ -39,6 +39,7 @@ from nesie_tpu_torch import parallel
 
 BN_MOMENTUM = 0.9  # flax: new = momentum * old + (1 - momentum) * batch
 BN_EPS = 1e-5
+GN_EPS = 1e-5  # torch's; flax's default 1e-6 would differ by ~2e-3
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -100,39 +101,80 @@ def frozen_bn_stats(model: nn.Module):
             m.update_stats = flag
 
 
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over the last axis of a channels-last tensor, each row of
+    the leading axis on its own (flax ``nn.GroupNorm``: the statistics of a
+    group span its channels and every position of the row), eps 1e-5 as
+    torch's. Normalises in at least float32 and returns ``x``'s dtype."""
+
+    def __init__(self, groups: int, channels: int):
+        super().__init__(groups, channels, eps=GN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.to(torch.promote_types(x.dtype, torch.float32))
+        return super().forward(h.movedim(-1, 1)).movedim(1, -1).to(x.dtype)
+
+
+NORMS = ("bn", "gn", "none")
+
+
 class ConvModule(nn.Module):
-    """Linear (the reference's 1x1 conv) -> BN -> ReLU; the Linear in
-    ``dtype`` when it is set (returning ``dtype``)."""
+    """Linear (the reference's 1x1 conv) -> norm -> ReLU; the Linear in
+    ``dtype`` when it is set (returning ``dtype``). ``norm``: ``"bn"``
+    (``.bn``), ``"gn"`` (``.gn``, ``gn_groups`` groups, as mmcv names it)
+    or ``"none"``; ``act=False`` leaves out the ReLU."""
 
     def __init__(self, cin: int, cout: int, bias: bool = False,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, norm: str = "bn",
+                 gn_groups: int = 32, act: bool = True):
         super().__init__()
+        if norm not in NORMS:
+            raise ValueError(f"norm={norm!r} is not one of {NORMS}")
         self.conv = nn.Linear(cin, cout, bias=bias)
-        self.bn = BatchNorm(cout)
+        if norm == "bn":
+            self.bn = BatchNorm(cout)
+        elif norm == "gn":
+            self.gn = GroupNorm(gn_groups, cout)
+        self.norm = norm
+        self.act = act
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is None:
-            return torch.relu(self.bn(self.conv(x)))
-        bias = self.conv.bias
-        h = F.linear(x.to(self.dtype), self.conv.weight.to(self.dtype),
-                     None if bias is None else bias.to(self.dtype))
-        return torch.relu(self.bn(h))
+            h = self.conv(x)
+        else:
+            bias = self.conv.bias
+            h = F.linear(x.to(self.dtype), self.conv.weight.to(self.dtype),
+                         None if bias is None else bias.to(self.dtype))
+        if self.norm == "bn":
+            h = self.bn(h)
+        elif self.norm == "gn":
+            h = self.gn(h)
+        return torch.relu(h) if self.act else h
 
 
 class PointMLP(nn.Sequential):
-    """A stack of ConvModules (``PointMLP`` with ``final_activation=True``
-    and BN in the JAX package). ``name`` formats each layer's name:
-    ``"layer{}"`` for the backbone and head stacks, ``"{}"`` for the vote
-    module's ``vote_conv``. ``dtype``: the Linears' compute dtype; the
-    stack returns float32."""
+    """A stack of ConvModules (the JAX package's ``PointMLP``). ``name``
+    formats each layer's name: ``"layer{}"`` for the backbone and head
+    stacks, ``"{}"`` for the vote module's ``vote_conv``. ``norm`` and
+    ``gn_groups`` as in ConvModule; ``final_activation=False`` makes the
+    last layer a bare Linear. ``bias="auto"`` gives a layer a bias only
+    where no norm follows it (mmcv's rule); True or False sets it for
+    every layer. ``dtype``: the Linears' compute dtype; the stack returns
+    float32."""
 
-    def __init__(self, cin: int, channels: Sequence[int], bias: bool = False,
-                 name: str = "layer{}", dtype: torch.dtype | None = None):
+    def __init__(self, cin: int, channels: Sequence[int],
+                 bias: bool | str = "auto", name: str = "layer{}",
+                 dtype: torch.dtype | None = None, norm: str = "bn",
+                 gn_groups: int = 32, final_activation: bool = True):
         layers = OrderedDict()
         for j, c in enumerate(channels):
-            layers[name.format(j)] = ConvModule(cin, c, bias=bias,
-                                                dtype=dtype)
+            normed = final_activation or j < len(channels) - 1
+            layer_norm = norm if normed else "none"
+            use_bias = (layer_norm == "none") if bias == "auto" else bool(bias)
+            layers[name.format(j)] = ConvModule(
+                cin, c, bias=use_bias, dtype=dtype, norm=layer_norm,
+                gn_groups=gn_groups, act=normed)
             cin = c
         super().__init__(layers)
         self.dtype = dtype

@@ -1,13 +1,15 @@
 """PointNet++ set abstraction, feature propagation and the SSG backbone.
 
 Counterpart of ``nesie_tpu/nn/pointnet2.py`` (PointSAModule,
-PointFPModule, PointNet2SASSG): sample (FPS) -> group (ball query,
-duplicate fill) -> shared MLP -> max-pool, channels-last. ``dtype`` /
+PointSAModuleMSG, PAConvSAModule, PointFPModule, PointNet2SASSG): sample
+(FPS) -> group (ball query, duplicate fill) -> shared MLP -> pool,
+channels-last. ``dtype`` /
 ``compute_dtype``: the shared MLPs' compute dtype (``nn.layers``); the
 neighbour searches always take float32 coordinates.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Sequence
 
 import torch
@@ -24,8 +26,63 @@ from nesie_tpu_torch.ops import (
 from .layers import PointMLP
 
 
+def sample_centers(xyz, num_point, indices=None, target_xyz=None,
+                   input_fps_ordered=False):
+    """The SA modules' centres: ``target_xyz`` (B, M, 3) as given
+    (``spec``), else ``xyz`` at ``indices`` (B, M) or at the FPS samples
+    (an ``arange`` when ``input_fps_ordered``). Returns (new_xyz,
+    indices); the indices as given with ``target_xyz``."""
+    if target_xyz is not None:
+        return target_xyz, indices
+    if indices is None:
+        if input_fps_ordered:
+            indices = torch.arange(
+                num_point, dtype=torch.int32, device=xyz.device
+            ).expand(xyz.shape[0], -1)
+        else:
+            indices = furthest_point_sample(xyz, num_point)
+    return gather_points(xyz, indices), indices
+
+
+def group(xyz, new_xyz, features, radius, num_sample, use_xyz=True,
+          normalize_xyz=True):
+    """Ball-query grouping: (grouped (B, M, K, C'), relative xyz
+    (B, M, K, 3)). The relative offsets, divided by the radius with
+    ``normalize_xyz``, lead the grouped features with ``use_xyz`` and
+    stand alone without features."""
+    idx = ball_query(xyz, new_xyz, radius, num_sample)
+    grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    if normalize_xyz:
+        grouped_xyz = grouped_xyz / radius
+    if features is None:
+        return grouped_xyz, grouped_xyz
+    grouped = group_points(features, idx)
+    if use_xyz:
+        grouped = torch.cat([grouped_xyz, grouped], dim=-1)
+    return grouped, grouped_xyz
+
+
+def _pool(x: torch.Tensor, pool: str) -> torch.Tensor:
+    """Over the neighbourhood axis: ``"max"`` or ``"avg"``."""
+    if pool == "max":
+        return x.amax(dim=2)
+    if pool == "avg":
+        return x.mean(dim=2)
+    raise ValueError(f"pool={pool!r}: 'max' or 'avg'")
+
+
+def _grouped_channels(in_channels: int, use_xyz: bool) -> int:
+    """Width of a grouped input: the features (``in_channels``, 0 for
+    none), with the 3 relative coordinates in front under ``use_xyz`` or
+    alone without features."""
+    return in_channels + 3 if use_xyz or in_channels == 0 else in_channels
+
+
 class PointSAModule(nn.Module):
-    """Single-scale-grouping set abstraction with max-pooling.
+    """Single-scale-grouping set abstraction: sample, group, shared MLP,
+    pool. ``use_xyz``: the relative coordinates lead the grouped features;
+    ``normalize_xyz``: they are divided by the radius; ``pool``: ``"max"``
+    or ``"avg"`` over the neighbourhood.
 
     ``input_fps_ordered``: FPS is prefix-consistent, so when the input is
     itself an FPS output in selection order, FPS(X, m) is the first m
@@ -35,15 +92,19 @@ class PointSAModule(nn.Module):
     def __init__(self, num_point: int, radius: float, num_sample: int,
                  in_channels: int, mlp_channels: Sequence[int],
                  input_fps_ordered: bool = False,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, use_xyz: bool = True,
+                 normalize_xyz: bool = True, pool: str = "max"):
         super().__init__()
         self.num_point = num_point
         self.radius = radius
         self.num_sample = num_sample
         self.input_fps_ordered = input_fps_ordered
-        # grouped input: relative xyz (3) + features
-        self.mlps = nn.ModuleList([PointMLP(in_channels + 3, mlp_channels,
-                                            dtype=dtype)])
+        self.use_xyz = use_xyz
+        self.normalize_xyz = normalize_xyz
+        self.pool = pool
+        self.mlps = nn.ModuleList([PointMLP(
+            _grouped_channels(in_channels, use_xyz), mlp_channels,
+            dtype=dtype)])
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None,
                 indices: torch.Tensor | None = None,
@@ -53,30 +114,95 @@ class PointSAModule(nn.Module):
         target_xyz (B, M, 3) explicit centres (``spec``) or neither (FPS).
         Returns new_xyz (B, M, 3), new_features (B, M, mlp[-1]) and
         indices (B, M) int32, None with ``target_xyz``."""
-        if target_xyz is not None:
-            new_xyz = target_xyz
-        else:
-            if indices is None:
-                if self.input_fps_ordered:
-                    B = xyz.shape[0]
-                    indices = torch.arange(
-                        self.num_point, dtype=torch.int32, device=xyz.device
-                    ).expand(B, -1)
-                else:
-                    indices = furthest_point_sample(xyz, self.num_point)
-            new_xyz = gather_points(xyz, indices)
+        new_xyz, indices = sample_centers(xyz, self.num_point, indices,
+                                          target_xyz, self.input_fps_ordered)
+        grouped, _ = group(xyz, new_xyz, features, self.radius,
+                           self.num_sample, self.use_xyz, self.normalize_xyz)
+        return new_xyz, _pool(self.mlps[0](grouped), self.pool), indices
 
-        idx = ball_query(xyz, new_xyz, self.radius, self.num_sample)
-        # relative offsets, normalised by the radius
-        grouped_xyz = (group_points(xyz, idx) - new_xyz[:, :, None, :]) \
-            / self.radius
-        if features is not None:
-            grouped = torch.cat([grouped_xyz, group_points(features, idx)],
-                                dim=-1)
-        else:
-            grouped = grouped_xyz
-        out = self.mlps[0](grouped).amax(dim=2)
-        return new_xyz, out, indices
+
+class PointSAModuleMSG(nn.Module):
+    """Multi-scale-grouping set abstraction (JAX ``PointSAModuleMSG``): one
+    sample of centres, a ball query and shared MLP (``mlps.{i}``) at each
+    radius, the pooled features concatenated."""
+
+    def __init__(self, num_point: int, radii: Sequence[float],
+                 sample_nums: Sequence[int], in_channels: int,
+                 mlp_channels: Sequence[Sequence[int]], use_xyz: bool = True,
+                 normalize_xyz: bool = True, pool: str = "max",
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.num_point = num_point
+        self.radii = tuple(radii)
+        self.sample_nums = tuple(sample_nums)
+        self.use_xyz = use_xyz
+        self.normalize_xyz = normalize_xyz
+        self.pool = pool
+        cin = _grouped_channels(in_channels, use_xyz)
+        self.mlps = nn.ModuleList(PointMLP(cin, chans, dtype=dtype)
+                                  for chans in mlp_channels)
+
+    def forward(self, xyz, features, indices=None, target_xyz=None):
+        """As ``PointSAModule.forward``; new_features (B, M, sum of the
+        scales' last widths)."""
+        new_xyz, indices = sample_centers(xyz, self.num_point, indices,
+                                          target_xyz)
+        outs = []
+        for radius, k, mlp in zip(self.radii, self.sample_nums, self.mlps):
+            grouped, _ = group(xyz, new_xyz, features, radius, k,
+                               self.use_xyz, self.normalize_xyz)
+            outs.append(_pool(mlp(grouped), self.pool))
+        return new_xyz, torch.cat(outs, dim=-1), indices
+
+
+class PAConvSAModule(nn.Module):
+    """Single-scale set abstraction with PAConv layers as the shared MLP
+    (JAX ``PAConvSAModule``, reference paconv_sa_module.py): sample,
+    group, a chain of PAConv layers (``mlps.0.layer{i}``) that each take
+    the grouped features and the relative xyz, pool. The relative xyz are
+    not divided by the radius by default, and lead the grouped features
+    under ``use_xyz`` (the first layer's input width + 3).
+
+    ``mlp_channels``: the widths of the chain, the first being the input
+    features' (replaced by the grouped width)."""
+
+    def __init__(self, num_point: int, radius: float, num_sample: int,
+                 mlp_channels: Sequence[int],
+                 paconv_num_kernels: Sequence[int], use_xyz: bool = True,
+                 normalize_xyz: bool = False, pool: str = "max",
+                 kernel_input: str = "w_neighbor",
+                 scorenet_input: str = "w_neighbor_dist",
+                 scorenet_mlp: Sequence[int] = (16, 16, 16)):
+        super().__init__()
+        from nesie_tpu_torch.ops.paconv import PAConv
+
+        self.num_point = num_point
+        self.radius = radius
+        self.num_sample = num_sample
+        self.use_xyz = use_xyz
+        self.normalize_xyz = normalize_xyz
+        self.pool = pool
+        chain = [_grouped_channels(mlp_channels[0], use_xyz),
+                 *mlp_channels[1:]]
+        layers = OrderedDict(
+            (f"layer{i}", PAConv(chain[i], chain[i + 1],
+                                 paconv_num_kernels[i],
+                                 scorenet_input=scorenet_input,
+                                 kernel_input=kernel_input,
+                                 scorenet_mlp=scorenet_mlp))
+            for i in range(len(chain) - 1))
+        self.mlps = nn.ModuleList([nn.ModuleDict(layers)])
+
+    def forward(self, xyz, features, indices=None, target_xyz=None):
+        """As ``PointSAModule.forward``."""
+        new_xyz, indices = sample_centers(xyz, self.num_point, indices,
+                                          target_xyz)
+        h, grouped_xyz = group(xyz, new_xyz, features, self.radius,
+                               self.num_sample, self.use_xyz,
+                               self.normalize_xyz)
+        for layer in self.mlps[0].values():
+            h = layer(h, grouped_xyz)
+        return new_xyz, _pool(h, self.pool), indices
 
 
 class PointFPModule(nn.Module):

@@ -567,3 +567,40 @@ def test_launch_lands_on_the_tensors_card(cuda):
     after = _build.launch_counts()
     assert after["ball_query"] == before["ball_query"] + 1
     assert after["three_nn"] == before["three_nn"] + 1
+
+
+def _blocks(b, n, seed):
+    """``b`` segmentation blocks of ``n`` points: 1.5 m x 1.5 m, 3 m
+    high."""
+    return _uniform((b, n, 3), seed) * torch.tensor([1.5, 1.5, 3.0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,m", [(16, 8192, 1024), (24, 8192, 1024),
+                                   (8, 1024, 256)])
+def test_fps_onchip_point_tail_shapes(cuda, b, n, m):
+    """The segmentor's SA1 in training (16 blocks) and in slide_inference
+    (24), and the VoteHead's seed / vote FPS (8 x 1024 seeds -> 256)."""
+    xyz = _blocks(b, n, seed=60 + b).to(cuda)
+    fps_onchip_plan(b, n)  # a plan exists
+    got = fps_onchip_cuda(xyz, m)
+    assert torch.equal(got, fps_ref(xyz, m))
+
+
+@pytest.mark.gpu
+def test_ball_query_segmentor_sa1_shape(cuda):
+    """The segmentor's SA1: 1024 centres over 8192 points, r 0.1, K 32,
+    B=16."""
+    xyz = _blocks(16, 8192, seed=70).to(cuda)
+    centers = torch.stack([x[fps_onchip_cuda(x[None], 1024)[0].long()]
+                           for x in xyz]).contiguous()
+    got = ball_query_cuda(xyz, centers, 0.1, 32)
+    assert torch.equal(got, ball_query_ref(xyz, centers, 0.1, 32))
+
+
+@pytest.mark.gpu
+def test_three_nn_segmentor_final_fp_shape(cuda):
+    """The segmentor's last FP: 8192 queries over 1024 sources, B=16."""
+    q = _blocks(16, 8192, seed=71).to(cuda)
+    s = q[:, :1024].contiguous()
+    assert torch.equal(three_nn_cuda(q, s), three_nn_ref(q, s))

@@ -183,7 +183,11 @@ def test_port_never_imports_jax():
             "nesie_tpu_torch.nn.saqe_head, "
             "nesie_tpu_torch.nn.quality_estimation, "
             "nesie_tpu_torch.train.saqe_loss, nesie_tpu_torch.parallel, "
-            "nesie_tpu_torch.parallel.launch; "
+            "nesie_tpu_torch.parallel.launch, nesie_tpu_torch.nn.vote_head, "
+            "nesie_tpu_torch.nn.segmentor, nesie_tpu_torch.ops.paconv, "
+            "nesie_tpu_torch.losses.consistency, nesie_tpu_torch.eval.tta, "
+            "nesie_tpu_torch.eval.seg_metrics, "
+            "nesie_tpu_torch.train.votehead_loss; "
             "bad = sorted(m for m in sys.modules "
             "if m in ('jax', 'flax', 'nesie_tpu') "
             "or m.startswith(('jax.', 'flax.', 'nesie_tpu.'))); "
