@@ -137,7 +137,26 @@ file; fails without them. In order:
    and train mode + backward, ``PointSAModuleMSG`` at two scales
    (``paconv``); [tta] the flagship ``Detector`` over the 4 views of
    ``make_tta_views(flip=True)`` and ``merge_aug_bboxes_3d`` beside one
-   plain request (``tta``: 4 requests' launches).
+   plain request (``tta``: 4 requests' launches);
+12. [migrate], a user on the card's machine (no jax) from raw data and a
+   reference checkpoint to detections, counts set to 0 before and read
+   after (path ``migrate``, every launch predicted from the forwards it
+   runs): raw ScanNet (8 generated rooms of ~60000 vertices: PLY,
+   segments, aggregation, axis alignment, label map) and SUN RGB-D (4
+   samples, ``.npy`` depth) trees; ``tools/create_data`` on both (infos,
+   box and label shapes, ``.bin`` sizes); ``tools/train.py`` on the
+   prepared infos (``nesie-votenet-scannet-pretrain-050``, 2 steps at B=4
+   x 40000; one step of ``nesie-votenet-sunrgbd-pretrain-050``); a
+   reference-layout ``.pth`` of the flagship (unit dims, ``ema_*``
+   buffers from a second seed) through ``tools/import_torch_ckpt`` (the
+   student and the teacher exactly the ``.pth``'s); ``tools/
+   dump_eval_set`` (40000 points) and the test CLI on it at B=32,
+   student and teacher, its raw outputs within 1e-4 of
+   ``init_detector(.pth)`` on the same clouds; ``tools/demo.py`` on one
+   exported ``.bin`` (``.obj`` files, ``Visualizer.render``);
+   ``points_sampler`` D-FPS at 32 and 8 x 40000 -> 2048 (K1, K2) against
+   ``fps_ref``, F-FPS and ``FS`` at 16 x 8192 x 4 -> 1024 and ``knn`` (k
+   16, 8 x 1024 over 8192) against the CPU, with their times.
 
 Prints ``{"kernels": [...]}``, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -302,6 +321,26 @@ SEG = dict(b=16, n=8192, block=1.5, slide_batch=24, sample_rate=0.5,
 SEG_NET = dict(num_points=(1024, 256, 64, 16), radii=(0.1, 0.2, 0.4, 0.8),
                num_samples=(32, 32, 32, 32))
 VOTE_B = 8
+# [migrate]: a port user with no jax on the card's machine. Raw trees of
+# generated rooms (ScanNet: ~60000 vertices a scan, so export_scan
+# subsamples to 50000; SUN RGB-D with .npy depth), create_data, the train
+# CLI on the prepared infos, a reference .pth imported, a presampled eval
+# set through the test CLI, the demo, and the point-op helpers.
+MIGRATE = dict(scenes=8, train=4, floor_points=56000, points_per_object=1000,
+               sun_samples=4, eval_points=N_POINTS, eval_batch=B, seed=21,
+               pretrain="nesie-votenet-scannet-pretrain-050",
+               sun_pretrain="nesie-votenet-sunrgbd-pretrain-050",
+               repeat=2, sun_repeat=1, requests=3)
+MIGRATE_OVER = ["optim.max_epochs=1", "log_interval=1"]
+MIGRATE_DFPS = ((B, N_POINTS, 2048), (8, N_POINTS, 2048))  # K1, K2
+MIGRATE_FFPS = dict(b=16, n=8192, d=1, m=1024)
+MIGRATE_KNN = dict(b=8, m=1024, n=8192, k=16)
+MIGRATE_ATOL = 1e-4
+# launches a forward: FPS, ball query, three-NN. A training forward
+# samples its proposals over the votes (sample_mod_train="vote"): one FPS
+# more.
+EVAL_FORWARD = dict(fps=1, ball_query=5, three_nn=4)
+TRAIN_FORWARD = dict(fps=2, ball_query=5, three_nn=4)
 
 # The rate of fp32 operations that are not FMAs: 132 SMs x 128 lanes x
 # the 1.98 GHz boost clock (the data sheet's 67 TFLOP/s counts an FMA as
@@ -2735,6 +2774,462 @@ def tail_phase(dev, scenes, weights) -> dict:
     return dict(launches=launches, kernels=kernels, info=info)
 
 
+def _instance_ids(xyz, boxes) -> np.ndarray:
+    """Per point the 1-based index of the first (yaw-free,
+    bottom-centered) box whose surface holds it within 0.1 mm (the
+    generated objects are box surfaces), 0 for none (the floor)."""
+    half = boxes[:, 3:6] / 2
+    local = np.abs(xyz[:, None] - (boxes[:, :3] + [0.0, 0.0, 1.0] * half))
+    on = ((local <= half + 1e-4).all(-1)
+          & (np.abs(local - half) <= 1e-4).any(-1))
+    return np.where(on.any(1), on.argmax(1) + 1, 0)
+
+
+def write_raw_scannet(root, scenes, splits=None) -> Path:
+    """A raw ScanNet tree from generated scenes (``make_synthetic_scenes``;
+    numpy only): ``<root>/scans/<id>/`` with ``<id>_vh_clean_2.ply``
+    (binary vertices: unaligned xyz and seeded colours),
+    ``<id>_vh_clean_2.0.010000.segs.json`` (segment 0 the floor, one a
+    box), ``<id>.aggregation.json`` (one instance a box labelled with its
+    class name, and the floor as ``floor``) and ``<id>.txt`` (an
+    ``axisAlignment`` of its own: a yaw and a shift that take the vertices
+    back to the scene's frame); ``<root>/scannetv2-labels.combined.tsv``
+    (class name -> nyu40 id, ``floor`` -> 2, not a detection class); and
+    for each ``splits`` entry (name -> scene ids)
+    ``<root>/meta/scannetv2_<name>.txt``. Returns ``<root>/scans``."""
+    from nesie_tpu_torch.data.scannet_meta import CLASS_NAMES, VALID_CAT_IDS
+
+    root = Path(root)
+    scans = root / "scans"
+    rng = np.random.default_rng(17)
+    vertex = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                       ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    for scene in scenes:
+        sid, d = scene.scene_id, scans / scene.scene_id
+        d.mkdir(parents=True, exist_ok=True)
+        yaw, shift = rng.uniform(-np.pi, np.pi), rng.uniform(-3, 3, 3)
+        c, s = np.cos(yaw), np.sin(yaw)
+        aam = np.eye(4)
+        aam[:3, :3] = [[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]]
+        aam[:3, 3] = shift
+        xyz = scene.points[:, :3].astype(np.float64)
+        v = np.empty(len(xyz), vertex)
+        raw = (xyz - shift) @ aam[:3, :3]  # the inverse alignment
+        v["x"], v["y"], v["z"] = raw.T
+        for ch in ("red", "green", "blue"):
+            v[ch] = rng.integers(0, 256, len(xyz))
+        with open(d / f"{sid}_vh_clean_2.ply", "wb") as f:
+            f.write((f"ply\nformat binary_little_endian 1.0\ncomment "
+                     f"generated\nelement vertex {len(v)}\n"
+                     "property float x\nproperty float y\nproperty float z\n"
+                     "property uchar red\nproperty uchar green\n"
+                     "property uchar blue\nend_header\n").encode("ascii"))
+            f.write(v.tobytes())
+        seg = _instance_ids(xyz, scene.boxes)
+        (d / f"{sid}_vh_clean_2.0.010000.segs.json").write_text(json.dumps(
+            {"sceneId": sid, "segIndices": seg.tolist()}))
+        groups = [{"id": 0, "objectId": 0, "segments": [0], "label": "floor"}]
+        groups += [{"id": j, "objectId": j, "segments": [j],
+                    "label": CLASS_NAMES[int(lab)]}
+                   for j, lab in enumerate(scene.labels, start=1)]
+        (d / f"{sid}.aggregation.json").write_text(json.dumps(
+            {"sceneId": sid, "segGroups": groups}))
+        (d / f"{sid}.txt").write_text(
+            "axisAlignment = " + " ".join(f"{x:.9f}" for x in aam.ravel())
+            + "\nsceneType = generated\n")
+    rows = ["raw_category\tcategory\tnyu40id", "floor\tfloor\t2"]
+    rows += [f"{n}\t{n}\t{cid}" for n, cid in zip(CLASS_NAMES, VALID_CAT_IDS)]
+    (root / "scannetv2-labels.combined.tsv").write_text("\n".join(rows) + "\n")
+    for name, ids in (splits or {}).items():
+        (root / "meta").mkdir(exist_ok=True)
+        (root / "meta" / f"scannetv2_{name}.txt").write_text(
+            "\n".join(ids) + "\n")
+    return scans
+
+
+def write_raw_sunrgbd(root, scenes, splits=None) -> Path:
+    """A raw SUN RGB-D ``sunrgbd_trainval`` tree from generated scenes
+    (numpy only): for sample ``i`` (id ``i + 1``, six digits)
+    ``depth/<id>.npy`` (the extracted xyz cloud), ``calib/<id>.txt``
+    (Rtilt and K, column-major) and ``label/<id>.txt`` (VoteNet format: a
+    SUN RGB-D class name, a 2D box, the gravity center, half sizes and the
+    heading's direction); for each ``splits`` entry (name -> sample
+    indices) ``<name>_data_idx.txt``. Returns ``root``."""
+    from nesie_tpu_torch.data.scannet_meta import SUNRGBD_CLASS_NAMES
+
+    root = Path(root)
+    for sub in ("depth", "calib", "label"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    k = np.array([[529.5, 0.0, 365.0], [0.0, 529.5, 265.0], [0.0, 0.0, 1.0]])
+    for i, scene in enumerate(scenes):
+        sid = f"{i + 1:06d}"
+        np.save(root / "depth" / f"{sid}.npy",
+                scene.points[:, :3].astype(np.float32))
+        (root / "calib" / f"{sid}.txt").write_text(
+            " ".join(f"{x:.9f}" for x in np.eye(3).ravel(order="F")) + "\n"
+            + " ".join(f"{x:.6f}" for x in k.ravel(order="F")) + "\n")
+        lines = []
+        for box, lab in zip(scene.boxes, scene.labels):
+            cx, cy, cz = box[0], box[1], box[2] + box[5] / 2
+            lines.append(
+                f"{SUNRGBD_CLASS_NAMES[int(lab) % 10]} 0 0 10 10 {cx:.6f} "
+                f"{cy:.6f} {cz:.6f} {box[3] / 2:.6f} {box[4] / 2:.6f} "
+                f"{box[5] / 2:.6f} {np.cos(-box[6]):.6f} "
+                f"{np.sin(-box[6]):.6f}")
+        (root / "label" / f"{sid}.txt").write_text("\n".join(lines) + "\n")
+    for name, idx in (splits or {}).items():
+        (root / f"{name}_data_idx.txt").write_text(
+            "\n".join(str(i + 1) for i in idx) + "\n")
+    return root
+
+
+def migrate_model():
+    """The flagship at full width, as ``init_detector``'s keyword form
+    builds it."""
+    from nesie_tpu_torch.nn.detector import VoteNetNesie
+
+    return VoteNetNesie()
+
+
+def reference_pth(path: Path) -> dict:
+    """A reference-layout ``.pth`` of the flagship: seeded weights with
+    randomised BN, 1x1 convolution weights with their unit dim restored
+    (``(out, in, 1)``), ``ema_*`` buffers of every parameter from a second
+    seed, ``meta`` and ``optimizer``. Returns the student's and the EMA
+    model's state_dicts."""
+    import torch
+
+    from nesie_tpu_torch.nn.detector import init_weights_, randomize_bn_
+
+    gen = torch.Generator().manual_seed(0)
+    student, ema = migrate_model(), migrate_model()
+    init_weights_(student, gen)
+    randomize_bn_(student, gen)
+    init_weights_(ema, torch.Generator().manual_seed(1))
+
+    def conv(v):
+        return v[..., None] if v.dim() == 2 else v
+
+    sd = {k: conv(v) for k, v in student.state_dict().items()}
+    sd.update({f"ema_{k.replace('.', '_')}": conv(v.detach())
+               for k, v in ema.named_parameters()})
+    torch.save({"meta": {"epoch": 36, "iter": 36 * 100},
+                "state_dict": sd,
+                "optimizer": {"state": {}, "param_groups": []}}, path)
+    return student.state_dict(), ema.state_dict()
+
+
+def per_forward(train: int = 0, eval_small: int = 0, eval_large: int = 0
+                ) -> dict:
+    """Launches of ``train`` training forwards and ``eval_small`` /
+    ``eval_large`` eval forwards at B <= 16 / B > 16."""
+    return {
+        "fps_onchip_small": TRAIN_FORWARD["fps"] * train
+        + EVAL_FORWARD["fps"] * eval_small,
+        "fps_onchip": EVAL_FORWARD["fps"] * eval_large,
+        "ball_query": TRAIN_FORWARD["ball_query"] * train
+        + EVAL_FORWARD["ball_query"] * (eval_small + eval_large),
+        "three_nn": TRAIN_FORWARD["three_nn"] * train
+        + EVAL_FORWARD["three_nn"] * (eval_small + eval_large),
+    }
+
+
+def knn_agree(got, want, src, qry, rel: float = 1e-5) -> int:
+    """``knn`` indices of two devices: equal except where the two
+    candidates' distances (float64) are within ``rel``, and the sorted k
+    distances within ``rel``. Returns the number of differing indices."""
+    import torch
+
+    def dist(idx):
+        s = src.double()[torch.arange(src.shape[0])[:, None, None],
+                         idx.long()]
+        return ((s - qry.double()[:, :, None]) ** 2).sum(-1)
+
+    dg, dw = dist(got), dist(want)
+    differ = got != want
+    scale = dw.abs().clamp(min=1e-12)
+    if ((dg - dw).abs() > rel * scale)[differ].any() or not torch.allclose(
+            dg.sort(-1).values, dw.sort(-1).values, rtol=rel, atol=0):
+        raise AssertionError("knn: the card and the CPU rank differently")
+    return int(differ.sum())
+
+
+def migrate_phase(dev) -> dict:
+    """[migrate]: a port user's way from raw data and a reference
+    checkpoint to detections on the card, with no jax (path ``migrate``,
+    counts set to 0 before and read after, each kernel's launches
+    predicted from the forwards the path runs). Then the point-op
+    helpers against their plain versions and the CPU, and their times.
+    Returns the launch counts and the numbers printed."""
+    import contextlib as ctx
+    import io as stdio
+    import shutil
+
+    import torch
+
+    from nesie_tpu_torch.apis import init_detector
+    from nesie_tpu_torch.config import get_config
+    from nesie_tpu_torch.data import io
+    from nesie_tpu_torch.data.dataset import PresampledScanNetScenes
+    from nesie_tpu_torch.data.synthetic import make_scene, make_synthetic_scenes
+    from nesie_tpu_torch.eval.visualize import Visualizer
+    from nesie_tpu_torch.ops import _build, pointops
+    from nesie_tpu_torch.ops.fps import fps_ref
+    from nesie_tpu_torch.tools import create_data, demo, dump_eval_set
+    from nesie_tpu_torch.tools import import_torch_ckpt
+    from nesie_tpu_torch.tools import test as test_cli
+    from nesie_tpu_torch.tools import train as train_cli
+    from nesie_tpu_torch.train import runner
+
+    t_phase = time.perf_counter()
+    m = MIGRATE
+    base = ROOT / "build" / "migrate_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    size = dict(floor_points=m["floor_points"],
+                points_per_object=m["points_per_object"])
+    rooms = make_synthetic_scenes(m["scenes"], seed=m["seed"], **size)
+    ids = [s.scene_id for s in rooms]
+    train_ids, val_ids = ids[:m["train"]], ids[m["train"]:]
+    scans = write_raw_scannet(base / "raw_scannet", rooms,
+                              {"train": train_ids, "val": val_ids})
+    n_sun = m["sun_samples"]
+    sun_rooms = make_synthetic_scenes(n_sun, seed=m["seed"] + 1,
+                                      num_classes=10, yaw_range=np.pi, **size)
+    sun_raw = write_raw_sunrgbd(base / "raw_sunrgbd", sun_rooms, {
+        "train": range(n_sun), "val": range(n_sun // 2, n_sun)})
+    print(f"[migrate] raw trees: {len(rooms)} ScanNet scans of "
+          f"{min(len(s.points) for s in rooms)}-"
+          f"{max(len(s.points) for s in rooms)} vertices, {n_sun} SUN RGB-D "
+          "samples with .npy depth")
+    scannet, sun, work = base / "scannet", base / "sunrgbd", base / "work"
+    pth = base / "reference.pth"
+    student_sd, ema_sd = reference_pth(pth)
+    gen = np.random.default_rng(m["seed"])
+    dfps_in = [torch.from_numpy(np.stack([
+        make_scene(gen, n) for _ in range(b)])).to(dev)
+        for b, n, _ in MIGRATE_DFPS]
+    f = MIGRATE_FFPS
+    ffps_xyz = torch.from_numpy(np.stack([make_scene(gen, f["n"])
+                                          for _ in range(f["b"])])).to(dev)
+    ffps_feat = torch.from_numpy(gen.uniform(
+        size=(f["b"], f["n"], f["d"])).astype(np.float32)).to(dev)
+    k = MIGRATE_KNN
+    knn_src = torch.from_numpy(np.stack([make_scene(gen, k["n"])
+                                         for _ in range(k["b"])])).to(dev)
+    knn_q = (knn_src[:, :k["m"]] + 0.05 * torch.randn(
+        (k["b"], k["m"], 3), generator=torch.Generator(dev).manual_seed(5),
+        device=dev)).contiguous()
+
+    _build.reset_launch_counts()
+    # ----- the migration path: prepare, train, import, evaluate, serve
+    t0 = time.perf_counter()
+    create_data.main(["scannet", "--raw-dir", str(scans), "--splits-dir",
+                      str(scans.parent / "meta"), "--out-dir", str(scannet)])
+    scannet_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    create_data.main(["sunrgbd", "--raw-dir", str(sun_raw), "--out-dir",
+                      str(sun)])
+    sun_s = time.perf_counter() - t0
+    (scannet / "meta_data").mkdir()
+    (scannet / "meta_data" / "scannetv2_train_0.5.txt").write_text(
+        "\n".join(train_ids) + "\n")
+    (sun / "sunrgbd_trainval").mkdir()
+    (sun / "sunrgbd_trainval" / "sunrgbd_v1_train_0.5.txt").write_text(
+        "\n".join(f"{i + 1:06d}" for i in range(n_sun)) + "\n")
+
+    common = ["--work-dir", str(work), "--device", str(dev)]
+    train_cli.main([m["pretrain"], "--data-root", str(scannet), *common,
+                    "--cfg-options", *MIGRATE_OVER,
+                    f"data.repeat={m['repeat']}"])
+    train_cli.main([m["sun_pretrain"], "--data-root", str(sun), *common,
+                    "--cfg-options", *MIGRATE_OVER,
+                    f"data.repeat={m['sun_repeat']}"])
+
+    t0 = time.perf_counter()
+    ckpt_dir = import_torch_ckpt.main([
+        m["pretrain"], str(pth), "--work-dir", str(base / "imported"),
+        "--device", str(dev), "--cfg-options", *MIGRATE_OVER])
+    import_s = time.perf_counter() - t0
+    presampled = dump_eval_set.main([
+        "--data-root", str(scannet), "--out", str(base / "presampled"),
+        "--num-points", str(m["eval_points"])])
+    test_args = [m["pretrain"], str(ckpt_dir), "--data-root", str(scannet),
+                 "--device", str(dev), "--batch-size", str(m["eval_batch"]),
+                 "--presampled", str(presampled), "--cfg-options",
+                 *MIGRATE_OVER]
+    t0 = time.perf_counter()
+    metrics = {"student": test_cli.main(
+        test_args + ["--dump-raw", str(base / "raw_out")])}
+    test_s = time.perf_counter() - t0
+    metrics["teacher"] = test_cli.main(test_args + ["--teacher"])
+    detector = init_detector(pth, device=dev)
+    val = PresampledScanNetScenes(presampled)
+    with torch.inference_mode():
+        direct = [{key: v[0].float().cpu().numpy() for key, v in
+                   detector.model(torch.from_numpy(s.points)[None].to(dev),
+                                  "seed", with_jitter=False).items()}
+                  for s in val.scenes]
+
+    cloud = scannet / "points" / f"{val_ids[0]}.bin"
+    shown = stdio.StringIO()
+    t0 = time.perf_counter()
+    with ctx.redirect_stdout(shown):
+        served = demo.main([m["pretrain"], str(cloud), "--checkpoint",
+                            str(ckpt_dir), "--out-dir", str(base / "demo"),
+                            "--score-thr", "0.0", "--device", str(dev)])
+    demo_s = time.perf_counter() - t0
+
+    b32, b8 = (pointops.points_sampler(x, None, mm, "D-FPS")
+               for x, (_, _, mm) in zip(dfps_in, MIGRATE_DFPS))
+    ffps = pointops.points_sampler(ffps_xyz, ffps_feat, f["m"], "F-FPS")
+    fs = pointops.points_sampler(ffps_xyz, ffps_feat, f["m"], "FS")
+    knn_idx = pointops.knn(k["k"], knn_src, knn_q)
+    torch.cuda.synchronize()
+    launches = {"migrate": _build.launch_counts()}
+    # ----- end of the migration path
+    print(f"[migrate] launches during the migration path: "
+          f"{launches['migrate']}")
+    steps_want = [n * r // get_config(name).data.samples_per_step
+                  for n, r, name in ((m["train"], m["repeat"], m["pretrain"]),
+                                     (n_sun, m["sun_repeat"],
+                                      m["sun_pretrain"]))]
+    want = per_forward(train=sum(steps_want),
+                       eval_small=len(val.scenes) + 1, eval_large=2)
+    want["fps_onchip"] += 1  # points_sampler's D-FPS at 32 rows (K1)
+    want["fps_onchip_small"] += 2  # D-FPS at 8 rows and FS's, 16 (K2)
+    check_counts(launches["migrate"], "migrate", want)
+
+    # the prepared data
+    for root, kind, n_train, n_val in ((scannet, "scannet", m["train"],
+                                        len(val_ids)),
+                                       (sun, "sunrgbd", n_sun, n_sun // 2)):
+        for split, n in (("train", n_train), ("val", n_val)):
+            infos = io.load_infos(root / f"{kind}_infos_{split}.pkl")
+            if len(infos) != n:
+                raise AssertionError(f"{kind} {split}: {len(infos)} infos")
+            for info in infos:
+                ann = info["annos"]
+                nb, cols = ann["gt_boxes_upright_depth"].shape
+                size_b = (root / info["pts_path"]).stat().st_size
+                if not (nb == ann["gt_num"] == len(ann["class"]) > 0
+                        and cols == (6 if kind == "scannet" else 7)
+                        and size_b == 50000 * 6 * 4):
+                    raise AssertionError(
+                        f"{kind} {info['pts_path']}: boxes {nb} x {cols}, "
+                        f"{len(ann['class'])} labels, {size_b} bytes")
+    for name in (m["pretrain"], m["sun_pretrain"]):
+        rows = metric_rows(work / name)
+        check_rows(rows, name)
+    steps = [len(metric_rows(work / name))
+             for name in (m["pretrain"], m["sun_pretrain"])]
+    if steps != steps_want:
+        raise AssertionError(f"train CLI steps {steps} (want {steps_want})")
+    # the import: the student is the .pth's, the teacher its ema_* buffers
+    # with the student's BN statistics
+    ckpt = runner.CheckpointManager(ckpt_dir.parent).load()
+    params = {name for name, _ in migrate_model().named_parameters()}
+    for key, v in student_sd.items():
+        teacher = ema_sd[key] if key in params else v
+        if not (torch.equal(ckpt["model"][key], v)
+                and torch.equal(ckpt["teacher"][key], teacher)):
+            raise AssertionError(f"import: {key} differs from the .pth")
+    for who, res in metrics.items():
+        for key in ("mAP_0.25", "mAR_0.25"):
+            if not 0.0 <= res.get(key, -1.0) <= 1.0:
+                raise AssertionError(f"presampled {who} {key} = {res.get(key)}")
+    worst = 0.0
+    for s, d in zip(val.scenes, direct):
+        raw = np.load(base / "raw_out" / f"{s.scene_id}.npz")
+        for key in ("bbox_preds", "obj_scores", "sem_scores", "iou_scores"):
+            if raw[key].shape != d[key].shape:
+                raise AssertionError(f"{s.scene_id} {key}: shapes differ")
+            worst = max(worst, float(np.abs(raw[key] - d[key]).max()))
+    if not worst <= MIGRATE_ATOL:
+        raise AssertionError(f"test CLI vs init_detector(.pth): max |diff| "
+                             f"{worst:.3e} > {MIGRATE_ATOL}")
+    lines = shown.getvalue().splitlines()
+    stem = cloud.stem
+    objs = [base / "demo" / stem / f"{stem}_{part}.obj"
+            for part in ("points", "pred")]
+    n_det = int(lines[0].split()[0])
+    if not (n_det == len(served["boxes_3d"]) > 0
+            and all(p.stat().st_size > 0 for p in objs)):
+        raise AssertionError(f"demo: {lines[:1]}, {[str(p) for p in objs]}")
+    top = np.argsort(-served["scores_3d"])[:8]
+    boxes = served["boxes_3d"][top].copy()
+    boxes[:, 2] -= boxes[:, 5] / 2  # Visualizer takes bottom centers
+    t0 = time.perf_counter()
+    image = Visualizer(io.load_points_bin(cloud), bbox3d=boxes).render()
+    render_s = time.perf_counter() - t0
+    if image.shape != (600, 800, 3) or image.dtype != np.uint8:
+        raise AssertionError(f"render: {image.shape} {image.dtype}")
+
+    # the point-op helpers: D-FPS against fps_ref on the card, F-FPS, FS
+    # and knn against the CPU
+    for (b, n, mm), x, got in zip(MIGRATE_DFPS, dfps_in, (b32, b8)):
+        if not torch.equal(got, fps_ref(x, mm)):
+            raise AssertionError(f"points_sampler D-FPS {b} x {n}: differs "
+                                 "from fps_ref")
+    x_cpu, f_cpu = ffps_xyz.cpu(), ffps_feat.cpu()
+    for mode, got in (("F-FPS", ffps), ("FS", fs)):
+        if not torch.equal(got.cpu(), pointops.points_sampler(
+                x_cpu, f_cpu, f["m"], mode)):
+            raise AssertionError(f"points_sampler {mode}: card and CPU differ")
+    knn_differ = knn_agree(knn_idx.cpu(), pointops.knn(
+        k["k"], knn_src.cpu(), knn_q.cpu()), knn_src.cpu(), knn_q.cpu())
+    times = {}
+    for (b, n, mm), x in zip(MIGRATE_DFPS, dfps_in):
+        times[f"D-FPS {b} x {n} -> {mm}"] = time_ms(
+            lambda: pointops.points_sampler(x, None, mm, "D-FPS"), 5)
+    tag = f"{f['b']} x {f['n']} x (3 + {f['d']}) -> {f['m']}"
+    for mode in ("F-FPS", "FS"):
+        times[f"{mode} {tag}"] = time_ms(lambda: pointops.points_sampler(
+            ffps_xyz, ffps_feat, f["m"], mode), 5)
+    times[f"knn k={k['k']} {k['b']} x {k['m']} over {k['n']}"] = time_ms(
+        lambda: pointops.knn(k["k"], knn_src, knn_q), 3)
+    request_ms = []
+    served_det = init_detector(m["pretrain"], ckpt_dir, device=dev,
+                               cfg_options=MIGRATE_OVER)
+    for _ in range(m["requests"]):
+        t0 = time.perf_counter()
+        served_det(cloud)  # ends in a host copy: synchronised
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    del detector, served_det, dfps_in, ffps_xyz, knn_src, knn_q
+
+    out = dict(
+        create_data_s_a_scene=scannet_s / len(rooms),
+        sunrgbd_s_a_sample=sun_s / n_sun, import_s=import_s,
+        test_scenes_per_s=len(val.scenes) / test_s,
+        demo_s=demo_s, request_ms=request_ms, times=times,
+        phase_s=time.perf_counter() - t_phase)
+    print(f"[migrate] create_data scannet: {scannet_s:.3f} s for "
+          f"{len(rooms)} scans ({out['create_data_s_a_scene']:.4f} s a "
+          f"scan); sunrgbd: {sun_s:.3f} s for {n_sun} samples; train CLI "
+          f"steps {steps}; losses "
+          f"{[round(r['loss'], 4) for r in metric_rows(work / m['pretrain'])]}"
+          f" (ScanNet), {[round(r['loss'], 4) for r in metric_rows(work / m['sun_pretrain'])]}"
+          " (SUN RGB-D)")
+    print(f"[migrate] import_torch_ckpt: {import_s:.3f} s, student and "
+          f"teacher (ema_* buffers, the student's BN statistics) exactly the "
+          f".pth's; test CLI --presampled ({len(val.scenes)} scenes x "
+          f"{m['eval_points']}, batch {m['eval_batch']}): {test_s:.3f} s, "
+          f"{out['test_scenes_per_s']:.3f} scenes/s, student mAP_0.25 "
+          f"{metrics['student']['mAP_0.25']:.4f}, teacher "
+          f"{metrics['teacher']['mAP_0.25']:.4f}; raw outputs against "
+          f"init_detector(.pth) on the same clouds: max |diff| {worst:.3e} "
+          f"(atol {MIGRATE_ATOL})")
+    print(f"[migrate] demo: {demo_s:.3f} s (model, weights, one request, "
+          f"the .obj files), {n_det} detections above 0.0; Visualizer."
+          f"render {render_s:.3f} s -> {image.shape}; requests from the "
+          f"imported checkpoint (ms): {[round(t, 3) for t in request_ms]}")
+    print(f"[migrate] point-op helpers (ms): "
+          f"{ {key: round(v, 4) for key, v in times.items()} }; D-FPS "
+          f"identical to fps_ref, F-FPS and FS identical to the CPU, knn "
+          f"{knn_differ} indices differing from the CPU within the tie rule")
+    print(f"[migrate] phase: {out['phase_s']:.2f} s")
+    return dict(launches=launches, **out)
+
+
 def make_scene_points(i: int, n: int):
     """Room ``i`` of the SUN RGB-D forward's batch, ``n`` points."""
     from nesie_tpu_torch.data.synthetic import make_scene
@@ -3081,6 +3576,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tail = tail_phase(dev, scenes, weights)
     launches.update(tail["launches"])
+
+    # ---- 12. data preparation, checkpoint import, the demo --------------
+    torch.cuda.empty_cache()
+    migrate = migrate_phase(dev)
+    launches.update(migrate["launches"])
 
     sources = {
         "fps_onchip": ("nesie_tpu_torch/csrc/fps_onchip.cu",

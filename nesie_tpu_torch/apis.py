@@ -1,6 +1,6 @@
 """High-level inference API. Counterpart of ``nesie_tpu/apis.py``
 (``Detector``, ``init_detector``, ``inference_detector``,
-``inference_segmentor``).
+``inference_segmentor``, ``show_result_meshlab``).
 
 ``init_detector`` builds the port's VoteNetNesie (Nesie or SAQE head) on
 an explicit device. In the JAX package's form it takes a config name
@@ -19,7 +19,11 @@ import numpy as np
 import torch
 
 from nesie_tpu_torch.config import InferenceConfig, apply_overrides, get_config
-from nesie_tpu_torch.convert import load_reference_state_dict, state_dict_from_flax
+from nesie_tpu_torch.convert import (
+    load_reference_state_dict,
+    load_reference_state_dicts,
+    state_dict_from_flax,
+)
 from nesie_tpu_torch.data import io
 from nesie_tpu_torch.eval.postprocess import decode_and_nms, expand_per_class
 from nesie_tpu_torch.nn.detector import (
@@ -73,10 +77,11 @@ def init_detector(checkpoint=None, checkpoint_dir=None, device="cuda",
 
     checkpoint: a config name (``get_config``'s, e.g.
     ``nesie-votenet-scannet-train-050``), served from ``checkpoint_dir``
-    (a runner's ``.../checkpoints``, its latest step; the student, or the
-    teacher with ``teacher``) or from weights seeded with the config's
-    seed (as the runner's ``init_state`` draws them), with
-    ``cfg_options`` applied as by the CLIs. Otherwise: None
+    (a runner's ``.../checkpoints``, its latest step, or a reference
+    ``.pth``; the student, or the teacher with ``teacher``: a ``.pth``'s
+    ``ema_*`` buffers, the student when it has none) or from weights
+    seeded with the config's seed (as the runner's ``init_state`` draws
+    them), with ``cfg_options`` applied as by the CLIs. Otherwise: None
     (weights from a ``torch.Generator`` seeded with ``seed``), a path to a
     reference-named ``.pth``, or the JAX package's variables as a dict
     with ``params`` and ``batch_stats``.
@@ -97,7 +102,7 @@ def init_detector(checkpoint=None, checkpoint_dir=None, device="cuda",
             sd = state_dict_from_flax(checkpoint["params"],
                                       checkpoint["batch_stats"])
         else:
-            sd = load_reference_state_dict(checkpoint, model)
+            sd = load_reference_state_dict(checkpoint)
         model.load_state_dict(sd, strict=True)
     model = model.to(device).eval()
     return Detector(model, cfg or InferenceConfig(), device)
@@ -121,6 +126,9 @@ def _detector_from_config(name, checkpoint_dir, device, teacher,
     model = build_model(cfg)
     if checkpoint_dir is None:  # the runner's initial weights
         init_weights_flax_(model, torch.Generator().manual_seed(cfg.seed))
+    elif Path(checkpoint_dir).suffix == ".pth":  # a reference checkpoint
+        student, ema = load_reference_state_dicts(checkpoint_dir)
+        model.load_state_dict(ema if teacher else student)
     else:
         ckpt = CheckpointManager(Path(checkpoint_dir).parent).load()
         if ckpt is None:
@@ -156,3 +164,38 @@ def inference_segmentor(model: torch.nn.Module, points, num_points=None,
     logits = logits[0].cpu().numpy()
     return dict(semantic_mask=np.argmax(logits, axis=-1), seg_logits=logits,
                 points=pts)
+
+
+def show_result_meshlab(out_dir, name, points=None, gt_boxes=None,
+                        pred_boxes=None, img=None, proj=None,
+                        seg_labels=None, palette=None):
+    """Dump meshlab-style artifacts (reference apis/inference.py:292-505
+    ``show_det_result_meshlab``/``show_seg_result_meshlab``/
+    ``show_proj_det_result_meshlab``): ``<name>_points.obj`` /
+    ``_gt.obj`` / ``_pred.obj``, a colorized segmentation cloud, and a
+    box-projection image when calibration is given (that one needs
+    ``cv2`` and ``imageio``). Returns the output directory."""
+    from nesie_tpu_torch.eval.visualize import (
+        draw_bbox3d_on_img,
+        show_result,
+        write_points_obj,
+    )
+
+    out = show_result(out_dir, name, points=points, gt_boxes=gt_boxes,
+                      pred_boxes=pred_boxes)
+    if seg_labels is not None and points is not None:
+        if palette is None:
+            rng = np.random.default_rng(42)  # stable class colors
+            palette = rng.integers(0, 256,
+                                   size=(int(seg_labels.max()) + 1, 3))
+        write_points_obj(out / f"{name}_seg.obj",
+                         np.asarray(points)[:, :3],
+                         colors=np.asarray(palette)[np.asarray(seg_labels)])
+    if img is not None and proj is not None and pred_boxes is not None \
+            and len(pred_boxes):
+        import imageio.v3 as iio
+
+        drawn = draw_bbox3d_on_img(np.asarray(pred_boxes), np.asarray(img),
+                                   np.asarray(proj))
+        iio.imwrite(out / f"{name}_pred_img.png", drawn.astype(np.uint8))
+    return out

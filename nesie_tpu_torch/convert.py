@@ -16,7 +16,8 @@ parameters stay float32).
 
 A flax Dense kernel is ``(in, out)``; an ``nn.Linear`` weight is
 ``(out, in)``. A reference ``.pth`` stores 1x1 convolutions as
-``(out, in, 1[, 1])``; ``load_reference_state_dict`` drops the unit dims.
+``(out, in, 1[, 1])``; ``load_torch_checkpoint`` drops the unit dims, and
+``extract_ema`` rebuilds the EMA teacher from its ``ema_*`` buffers.
 """
 from __future__ import annotations
 
@@ -249,19 +250,44 @@ def state_dict_from_flax(params: dict, batch_stats: dict | None = None) -> dict:
     return _tensors(sd)
 
 
-def load_reference_state_dict(path, model: torch.nn.Module) -> dict:
-    """Read a reference-named ``.pth`` (a bare state_dict or one under
-    ``"state_dict"``) and reshape its 1x1 convolution weights to the
-    port's ``(out, in)``. The teacher's ``ema_*`` buffers are dropped: the
-    student's weights are loaded."""
+def load_torch_checkpoint(path) -> dict:
+    """Every tensor of a reference ``.pth`` (a bare state_dict or one
+    under ``"state_dict"``), the teacher's ``ema_*`` buffers included,
+    with the 1x1 convolution weights ``(out, in, 1[, 1])`` reshaped to the
+    port's ``(out, in)``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("state_dict", ckpt)
-    target = model.state_dict()
-    out = {}
+    return {k: v.reshape(v.shape[:2]) if v.dim() > 2 and v.shape[2:].numel() == 1
+            else v for k, v in sd.items()}
+
+
+def extract_ema(sd: dict) -> dict | None:
+    """The teacher's state_dict from the ``ema_<name with . -> _>``
+    buffers of a reference state_dict: every parameter that has an EMA
+    buffer takes it, everything else (BN running statistics, which the
+    reference's SimiTeacherHook never averages: simi_teacher_hook.py:46-52,
+    86-92) is the student's. None when there is no ``ema_*`` buffer (a
+    pretrain ``.pth``)."""
+    mangled = {k.replace(".", "_"): k for k in sd if not k.startswith("ema_")}
+    overlay = {}
     for k, v in sd.items():
-        if k.startswith("ema_"):
-            continue
-        if k in target and v.dim() > target[k].dim():
-            v = v.reshape(target[k].shape)
-        out[k] = v
-    return out
+        if k.startswith("ema_") and k[4:] in mangled:
+            overlay[mangled[k[4:]]] = v
+    if not overlay:
+        return None
+    return {k: overlay.get(k, v) for k, v in sd.items()
+            if not k.startswith("ema_")}
+
+
+def load_reference_state_dicts(path) -> tuple[dict, dict]:
+    """The student's and the teacher's state_dicts from a reference
+    ``.pth``: the student without the ``ema_*`` buffers, the teacher from
+    them (``extract_ema``), or the student itself when there are none."""
+    sd = load_torch_checkpoint(path)
+    student = {k: v for k, v in sd.items() if not k.startswith("ema_")}
+    return student, extract_ema(sd) or student
+
+
+def load_reference_state_dict(path) -> dict:
+    """The student's state_dict from a reference ``.pth``."""
+    return load_reference_state_dicts(path)[0]

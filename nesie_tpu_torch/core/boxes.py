@@ -17,6 +17,11 @@ _CORNER_SIGNS = (
 )
 
 
+def limit_period(val, offset: float = 0.5, period: float = torch.pi):
+    """Wrap ``val`` into ``[-offset*period, (1-offset)*period)``."""
+    return val - torch.floor(val / period + offset) * period
+
+
 def rotation_z(angle: torch.Tensor) -> torch.Tensor:
     """Box-frame -> world rotation matrices, ``angle.shape + (3, 3)``,
     applied as ``out_i = sum_j p_j R[j, i]``."""
@@ -44,6 +49,21 @@ def box_corners(boxes: torch.Tensor) -> torch.Tensor:
 def corners_minmax(corners: torch.Tensor) -> torch.Tensor:
     """(..., 8, 3) corners -> (..., 6) axis-aligned (min_xyz, max_xyz)."""
     return torch.cat([corners.amin(dim=-2), corners.amax(dim=-2)], dim=-1)
+
+
+def gravity_center_of(bottom_boxes: torch.Tensor) -> torch.Tensor:
+    """Gravity centers of bottom-centered boxes (..., >=6) -> (..., 3)."""
+    return torch.stack([bottom_boxes[..., 0], bottom_boxes[..., 1],
+                        bottom_boxes[..., 2] + 0.5 * bottom_boxes[..., 5]],
+                       dim=-1)
+
+
+def box_to_surface(boxes: torch.Tensor) -> torch.Tensor:
+    """Boxes -> the 6 face coordinates ``(x1, y1, z1, x2, y2, z2)`` of the
+    axis-aligned box around the center, yaw ignored (reference
+    ``Bbox2Surface``, surface_loss.py:90)."""
+    c, s = boxes[..., :3], boxes[..., 3:6]
+    return torch.cat([c - 0.5 * s, c + 0.5 * s], dim=-1)
 
 
 def points_in_boxes(points: torch.Tensor, boxes: torch.Tensor, *,

@@ -1,7 +1,7 @@
 """IoU of 3D boxes: axis-aligned, and the differentiable rotated IoU.
 
 Counterpart of ``nesie_tpu/core/iou.py`` (``axis_aligned_overlap_3d``,
-``axis_aligned_iou_3d``, ``iou3d``). The rotated IoU has the semantics of
+``axis_aligned_iou_3d``, ``iou3d``, ``giou3d``). The rotated IoU has the semantics of
 the reference's Rotated_IoU package (oriented_iou_loss.py +
 box_intersection_2d.py): the two BEV rectangles are clipped with up to 24
 candidate vertices, sorted by angle (a stable argsort in place of the CUDA
@@ -155,3 +155,63 @@ def iou3d(boxes1, boxes2, eps: float = _EPS):
     v1 = boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5]
     v2 = boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5]
     return inter3d / torch.clamp(v1 + v2 - inter3d, min=eps)
+
+
+def _smallest_enclosing_wh(corners):
+    """Width and height of the minimum-area rectangle enclosing 8 BEV
+    points (..., 8, 2) -> (w, h), each (...). The optimal rectangle has an
+    edge parallel to a hull edge, so scanning every point-pair direction
+    is exact (the reference's ``smallest_bounding_box``,
+    min_enclosing_box.py). As in the JAX package, a point paired with
+    itself takes ``sqrt`` at 0, so the gradient through the chosen
+    rectangle is NaN in x, y, the sizes and yaw."""
+    diff = corners[..., :, None, :] - corners[..., None, :, :]
+    batch = corners.shape[:-2]
+    diff = diff.reshape(batch + (64, 2))
+    norm = torch.sqrt((diff * diff).sum(dim=-1))
+    degenerate = norm < 1e-8
+    u = diff / torch.clamp(norm, min=1e-8)[..., None]  # candidate x-axes
+    px = torch.einsum("...dc,...pc->...dp", u, corners)
+    perp = torch.stack([-u[..., 1], u[..., 0]], dim=-1)
+    py = torch.einsum("...dc,...pc->...dp", perp, corners)
+    w = px.amax(dim=-1) - px.amin(dim=-1)
+    h = py.amax(dim=-1) - py.amin(dim=-1)
+    area = torch.where(degenerate, torch.inf, w * h)
+    best = area.argmin(dim=-1, keepdim=True)
+    return w.gather(-1, best)[..., 0], h.gather(-1, best)[..., 0]
+
+
+def giou3d(boxes1, boxes2, eps: float = _EPS, enclosing: str = "smallest"):
+    """Rotated 3D GIoU loss of aligned (..., 7) gravity-centered box pairs
+    (reference ``cal_giou_3d``, oriented_iou_loss.py:112). Returns
+    (giou_loss, iou).
+
+    ``enclosing``: "smallest" (the reference's default, the min-area
+    rotated rectangle) or "aligned" (axis-aligned, a cheaper upper
+    bound)."""
+    bev1, bev2 = boxes1[..., _BEV], boxes2[..., _BEV]
+    c1, c2 = bev_corners(bev1), bev_corners(bev2)
+    inter2d = rotated_intersection_area_2d(c1, c2)
+    zmax1 = boxes1[..., 2] + 0.5 * boxes1[..., 5]
+    zmin1 = boxes1[..., 2] - 0.5 * boxes1[..., 5]
+    zmax2 = boxes2[..., 2] + 0.5 * boxes2[..., 5]
+    zmin2 = boxes2[..., 2] - 0.5 * boxes2[..., 5]
+    z_overlap = torch.clamp(torch.minimum(zmax1, zmax2)
+                            - torch.maximum(zmin1, zmin2), min=0.0)
+    z_range = torch.clamp(torch.maximum(zmax1, zmax2)
+                          - torch.minimum(zmin1, zmin2), min=0.0)
+
+    inter3d = inter2d * z_overlap
+    v1 = boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5]
+    v2 = boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5]
+    union3d = v1 + v2 - inter3d
+    iou = inter3d / torch.clamp(union3d, min=eps)
+
+    all_c = torch.cat([c1, c2], dim=-2)
+    if enclosing == "smallest":
+        w, h = _smallest_enclosing_wh(all_c)
+    else:
+        w = all_c[..., 0].amax(dim=-1) - all_c[..., 0].amin(dim=-1)
+        h = all_c[..., 1].amax(dim=-1) - all_c[..., 1].amin(dim=-1)
+    vc = torch.clamp(z_range * w * h, min=eps)
+    return 1.0 - iou + (vc - union3d) / vc, iou

@@ -6,15 +6,14 @@ surface point cloud; ``semi_batch`` puts such rooms into the batch layout
 of the semi-supervised train step.
 
 ``make_synthetic_scene(s)`` and ``write_synthetic_scannet`` are copies of
-``nesie_tpu/data/synthetic.py`` (and ``write_infos`` of
-``nesie_tpu/data/scannet_prep.py``): rooms with class-sized box objects
-over a floor, written in the on-disk ScanNet format (``points/*.bin``,
-infos pkls, split lists), so that a machine without the JAX package can
+``nesie_tpu/data/synthetic.py``: rooms with class-sized box objects over
+a floor, written in the on-disk ScanNet format by
+``scannet_prep.write_infos`` (``points/*.bin``, infos pkls, split
+lists), so that a machine without the JAX package can
 make a dataset the runner and the CLIs read.
 """
 from __future__ import annotations
 
-import pickle
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +22,8 @@ import torch
 from nesie_tpu_torch.data import io
 from nesie_tpu_torch.data.augment import AugParams
 from nesie_tpu_torch.data.dataset import Scene
-from nesie_tpu_torch.data.scannet_meta import CAT_ID_TO_CLASS, VALID_CAT_IDS
+from nesie_tpu_torch.data.scannet_meta import VALID_CAT_IDS
+from nesie_tpu_torch.data.scannet_prep import write_infos
 
 
 def make_scene(rng: np.random.Generator, n: int, k: int | None = None,
@@ -207,42 +207,6 @@ def scene_to_scannet_export(scene):
         boxes=boxes.astype(np.float32),
         axis_align_matrix=scene.axis_align.astype(np.float32),
     )
-
-
-def write_infos(scans, out_dir, split_name: str):
-    """Write mmdet3d-compatible .bin points + scannet_infos_<split>.pkl.
-
-    Args:
-        scans: iterable of (scan_name, export dict).
-    """
-    out_dir = Path(out_dir)
-    (out_dir / "points").mkdir(parents=True, exist_ok=True)
-    infos = []
-    for scan_name, data in scans:
-        pts_path = f"points/{scan_name}.bin"
-        data["points"].astype(np.float32).tofile(out_dir / pts_path)
-        boxes = data["boxes"]
-        # gt_boxes_upright_depth stores the minmax (gravity) center — the
-        # reference's ScanNetDataset passes origin=(0.5, 0.5, 0.5)
-        # (scannet_dataset.py:97-101); loaders convert to bottom-center.
-        labels = np.array(
-            [CAT_ID_TO_CLASS[int(b[6])] for b in boxes], np.int64
-        )
-        infos.append(
-            dict(
-                point_cloud=dict(num_features=6, lidar_idx=scan_name),
-                pts_path=pts_path,
-                annos={
-                    "gt_num": len(boxes),
-                    "gt_boxes_upright_depth": boxes[:, :6],
-                    "class": labels,
-                    "axis_align_matrix": data["axis_align_matrix"],
-                },
-            )
-        )
-    with open(out_dir / f"scannet_infos_{split_name}.pkl", "wb") as f:
-        pickle.dump(infos, f)
-    return infos
 
 
 def write_synthetic_scannet(out_dir, n_train: int, n_val: int, seed: int = 0,

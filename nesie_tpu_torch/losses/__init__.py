@@ -1,9 +1,12 @@
 from .basic import (
     binary_cross_entropy,
+    corner_loss_lidar,
     l1_loss,
     mse_loss,
     smooth_l1_loss,
     softmax_cross_entropy,
+    weight_reduce,
+    weighted_smooth_l1,
 )
 from .chamfer import chamfer_distance
 from .gfocal import distribution_focal_loss, quality_focal_loss
@@ -23,6 +26,7 @@ __all__ = [
     "bbox_to_surface",
     "binary_cross_entropy",
     "chamfer_distance",
+    "corner_loss_lidar",
     "distribution_focal_loss",
     "iou_3d_loss",
     "l1_loss",
@@ -36,4 +40,6 @@ __all__ = [
     "surface_loss_smooth_l1",
     "surface_to_prob",
     "transform_surface",
+    "weight_reduce",
+    "weighted_smooth_l1",
 ]

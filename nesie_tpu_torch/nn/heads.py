@@ -1,6 +1,6 @@
-"""Prediction head layers: the integral side decode, SAQE's angle decode,
-the base and the reliable conv heads. Counterpart of
-``nesie_tpu/nn/heads.py``."""
+"""Prediction head layers: the integral side decode (and its ``Integral``
+module), SAQE's angle decode, the base and the reliable conv heads.
+Counterpart of ``nesie_tpu/nn/heads.py``."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -16,6 +16,18 @@ def integral_expectation(logits: torch.Tensor, reg_max: int) -> torch.Tensor:
     project = torch.linspace(0.0, 1.0, reg_max + 1, dtype=logits.dtype,
                              device=logits.device)
     return (torch.softmax(logits, dim=-1) * project).sum(dim=-1)
+
+
+class Integral(nn.Module):
+    """``integral_expectation`` as a module without parameters (the
+    reference's Integral, nesie_head.py:19)."""
+
+    def __init__(self, reg_max: int = 32):
+        super().__init__()
+        self.reg_max = reg_max
+
+    def forward(self, logits: torch.Tensor) -> torch.Tensor:
+        return integral_expectation(logits, self.reg_max)
 
 
 def angle_integral_expectation(logits: torch.Tensor) -> torch.Tensor:

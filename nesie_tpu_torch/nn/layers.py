@@ -42,6 +42,13 @@ BN_EPS = 1e-5
 GN_EPS = 1e-5  # torch's; flax's default 1e-6 would differ by ~2e-3
 
 
+def clip_sigmoid(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """Sigmoid clamped to [eps, 1-eps] (reference
+    mmdet3d/models/utils/clip_sigmoid.py:1-16): keeps the focal-loss
+    ``log`` terms of heatmap heads finite at saturation."""
+    return torch.clamp(torch.sigmoid(x), eps, 1.0 - eps)
+
+
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last axis of a channels-last tensor."""
 

@@ -25,6 +25,7 @@ an EMA of them.
 from __future__ import annotations
 
 import copy
+import math
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
@@ -57,6 +58,24 @@ def make_lr_schedule(base_lr: float, steps_per_epoch: int,
             if step >= b:
                 lr *= gamma
         return lr
+
+    return schedule
+
+
+def make_cosine_lr_after_step(base_lr: float, steps_per_epoch: int,
+                              step_epoch: int, total_epochs: int,
+                              clip: float = 1e-6) -> Callable[[int], float]:
+    """Constant-then-cosine decay (reference ``cosine_lr_after_step``,
+    mmdet3d/models/utils/utils.py:26-34): ``base_lr`` until epoch
+    ``step_epoch``, then a half cosine down to ``clip`` at
+    ``total_epochs``."""
+
+    def schedule(step: int) -> float:
+        epoch = step // steps_per_epoch
+        if epoch < step_epoch:
+            return base_lr
+        frac = (epoch - step_epoch) / max(total_epochs - step_epoch, 1)
+        return clip + 0.5 * (base_lr - clip) * (1.0 + math.cos(math.pi * frac))
 
     return schedule
 

@@ -122,7 +122,7 @@ def test_reference_pth_loads_into_port(tmp_path):
     save_reference_checkpoint(ref, path)
 
     model = VoteNetNesie(**TINY)
-    model.load_state_dict(load_reference_state_dict(path, model), strict=True)
+    model.load_state_dict(load_reference_state_dict(path), strict=True)
     ref_sd = {k: v.numpy() for k, v in ref.state_dict().items()
               if not k.startswith("ema_")}
     want = _flat(dict(zip(("params", "stats"), convert_state_dict(ref_sd))))
@@ -155,7 +155,7 @@ def test_init_detector_weight_sources(tmp_path, source):
         path = tmp_path / "ref.pth"
         save_reference_checkpoint(ref, path)
         det = init_detector(path, device="cpu", **TINY)
-        want = load_reference_state_dict(path, det.model)
+        want = load_reference_state_dict(path)
     got = det.model.state_dict()
     assert not det.model.training
     for k, v in want.items():

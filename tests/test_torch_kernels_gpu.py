@@ -604,3 +604,27 @@ def test_three_nn_segmentor_final_fp_shape(cuda):
     q = _blocks(16, 8192, seed=71).to(cuda)
     s = q[:, :1024].contiguous()
     assert torch.equal(three_nn_cuda(q, s), three_nn_ref(q, s))
+
+
+@pytest.mark.gpu
+def test_points_sampler_and_knn_on_card(cuda):
+    """``points_sampler``'s D-FPS on the card (K2, then K1 past 16 rows)
+    equals ``fps_ref``; its F-FPS and ``FS`` modes and ``knn`` (plain
+    PyTorch on both devices) equal the CPU: indices identical (the
+    distances are summed channel by channel, one rounding per op on
+    both devices)."""
+    from nesie_tpu_torch.ops import pointops
+
+    for b in (4, 17):
+        xyz = _uniform((b, 4096, 3), seed=80 + b).to(cuda)
+        got = pointops.points_sampler(xyz, None, 512, "D-FPS")
+        assert torch.equal(got, fps_ref(xyz, 512))
+    xyz = _uniform((4, 4096, 3), seed=90)
+    feats = _uniform((4, 4096, 1), seed=91)
+    for mode in ("F-FPS", "FS"):
+        got = pointops.points_sampler(xyz.to(cuda), feats.to(cuda), 256, mode)
+        assert torch.equal(got.cpu(), pointops.points_sampler(xyz, feats, 256,
+                                                              mode))
+    q = _uniform((4, 512, 3), seed=92)
+    got = pointops.knn(16, xyz.to(cuda), q.to(cuda))
+    assert torch.equal(got.cpu(), pointops.knn(16, xyz, q))

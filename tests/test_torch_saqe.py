@@ -374,7 +374,7 @@ def test_reference_named_saqe_state_dict_loads(weights, tmp_path):
     path = tmp_path / "saqe.pth"
     torch.save({"state_dict": sd}, path)
     fresh = VoteNetNesie(**TINY)
-    fresh.load_state_dict(load_reference_state_dict(path, fresh), strict=True)
+    fresh.load_state_dict(load_reference_state_dict(path), strict=True)
     for k, v in model.state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v), k
 

@@ -187,7 +187,16 @@ def test_port_never_imports_jax():
             "nesie_tpu_torch.nn.segmentor, nesie_tpu_torch.ops.paconv, "
             "nesie_tpu_torch.losses.consistency, nesie_tpu_torch.eval.tta, "
             "nesie_tpu_torch.eval.seg_metrics, "
-            "nesie_tpu_torch.train.votehead_loss; "
+            "nesie_tpu_torch.train.votehead_loss, "
+            "nesie_tpu_torch.data.scannet_prep, "
+            "nesie_tpu_torch.data.sunrgbd_prep, "
+            "nesie_tpu_torch.tools.create_data, "
+            "nesie_tpu_torch.tools.dump_eval_set, "
+            "nesie_tpu_torch.tools.import_torch_ckpt, "
+            "nesie_tpu_torch.tools.demo, nesie_tpu_torch.eval.visualize, "
+            "nesie_tpu_torch.convert, nesie_tpu_torch.core, "
+            "nesie_tpu_torch.losses, nesie_tpu_torch.nn.heads, "
+            "nesie_tpu_torch.nn.layers, nesie_tpu_torch.train.state; "
             "bad = sorted(m for m in sys.modules "
             "if m in ('jax', 'flax', 'nesie_tpu') "
             "or m.startswith(('jax.', 'flax.', 'nesie_tpu.'))); "
