@@ -156,7 +156,28 @@ file; fails without them. In order:
    exported ``.bin`` (``.obj`` files, ``Visualizer.render``);
    ``points_sampler`` D-FPS at 32 and 8 x 40000 -> 2048 (K1, K2) against
    ``fps_ref``, F-FPS and ``FS`` at 16 x 8192 x 4 -> 1024 and ``knn`` (k
-   16, 8 x 1024 over 8192) against the CPU, with their times.
+   16, 8 x 1024 over 8192) against the CPU, with their times;
+13. [voxel], the voxel and outdoor stack (plain PyTorch), counts set to 0
+   before and read after (path ``voxel``: no kernel of the port may
+   launch), each step on the card and on the CPU from the same seeded
+   inputs (integer outputs identical, floats within ``VOXEL_TOL`` of their
+   scale), with its median ms of 5 calls and its peak GiB: a LiDAR-like
+   cloud of 120000 points in KITTI's range; ``voxelize`` at SECOND's
+   voxel layer (0.05 x 0.05 x 0.1, 5 points, 16000 and 40000 voxels) and
+   ``VoxelGenerator`` (its voxels those of ``voxelize``), ``dynamic_scatter``
+   mean and max; a sparse network on the (41, 1600, 1408) grid at V=40000
+   (two ``SparseBasicBlock``s of 16, ``SparseConv3d`` to 32, a block of
+   32, ``sparse_maxpool3d``, then ``sparse_inverse_conv3d`` and
+   ``sparse_conv_transpose3d`` back) forward and backward in float32;
+   ``roiaware_pool3d`` max and avg at PartA2's 14^3 x 128 on 128 rois
+   over 16384 points of 16 channels, forward and backward; SECOND's
+   3-class anchors on the 200 x 176 map and ``delta_xyzwhlr`` encode /
+   decode over them; ``box3d_multiclass_nms`` and ``pcdet_nms.nms`` on
+   1000 boxes of 3 classes; CenterPoint nuScenes' ``centerpoint_decode``
+   + ``circle_nms`` (4 x 2 x 128 x 128, 500 boxes) and
+   ``draw_heatmap_gaussian``; ``create_data scannet --gt-db`` on
+   [migrate]'s tree, ``DataBaseSampler.sample_all`` + ``object_sample``
+   on one scene, the pasted scene voxelized on both devices.
 
 Prints ``{"kernels": [...]}``, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -336,6 +357,39 @@ MIGRATE_DFPS = ((B, N_POINTS, 2048), (8, N_POINTS, 2048))  # K1, K2
 MIGRATE_FFPS = dict(b=16, n=8192, d=1, m=1024)
 MIGRATE_KNN = dict(b=8, m=1024, n=8192, k=16)
 MIGRATE_ATOL = 1e-4
+# [voxel]: the voxel and outdoor stack (plain PyTorch; it launches none of
+# the port's kernels) at the shapes of public mmdetection3d configs: SECOND
+# on KITTI (configs/_base_/models/hv_second_secfpn_kitti.py: voxel layer,
+# 3-class anchors on the 200 x 176 map, the test-time NMS), PartA2's RoI
+# extractors (configs/parta2/hv_PartA2_secfpn_2x8_cyclic_80e_kitti-3d-3class
+# .py: out_size 14, 128 points a voxel) and CenterPoint on nuScenes
+# (configs/_base_/models/centerpoint_01voxel_second_secfpn_nus.py: a
+# 128 x 128 map, a 2-class task with velocity). Each step runs on the card
+# and on the CPU from the same seeded inputs.
+KITTI_RANGE = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+VOXEL = dict(points=120000, objects=24, seed=31, voxel_size=(0.05, 0.05, 0.1),
+             max_points=5, max_voxels=(16000, 40000), grid=(41, 1600, 1408),
+             timed=5)
+VOXEL_ROI = dict(rois=128, points=16384, channels=16, out_size=14,
+                 max_pts=128, face_margin=1e-4)
+VOXEL_ANCHORS = dict(
+    ranges=((0, -40.0, -0.6, 70.4, 40.0, -0.6),
+            (0, -40.0, -0.6, 70.4, 40.0, -0.6),
+            (0, -40.0, -1.78, 70.4, 40.0, -1.78)),
+    sizes=((0.6, 0.8, 1.73), (0.6, 1.76, 1.73), (1.6, 3.9, 1.56)),
+    rotations=(0, 1.57), featmap=(1, 200, 176))
+VOXEL_NMS = dict(boxes=1000, classes=3, score_thr=0.1, nms_thr=0.01,
+                 max_num=50)
+CENTERPOINT = dict(b=4, classes=2, size=128, max_num=500, score_threshold=0.1,
+                   pc_range=(-51.2, -51.2), out_size_factor=8,
+                   voxel_size=(0.1, 0.1),
+                   post_center_range=(-61.2, -61.2, -10.0, 61.2, 61.2, 10.0),
+                   min_radius=12.0, gaussians=40)
+# card vs CPU at these sizes: every integer output identical; a float
+# output within VOXEL_TOL times the largest magnitude of the CPU's (at
+# least 1): forwards are elementwise or short sums (1e-5), gradients sum
+# over up to 40000 rows (1e-4)
+VOXEL_TOL = dict(forward=1e-5, grad=1e-4)
 # launches a forward: FPS, ball query, three-NN. A training forward
 # samples its proposals over the votes (sample_mod_train="vote"): one FPS
 # more.
@@ -3230,6 +3284,592 @@ def migrate_phase(dev) -> dict:
     return dict(launches=launches, **out)
 
 
+def roi_off_faces(rois, pts, out_size, margin: float):
+    """Mask of the points farther than ``margin`` (m, in float64) from
+    every face of the voxel grid of every roi they lie in or near, in
+    ``roiaware_pool3d``'s frame: the outer faces in x, y and z and the
+    planes between the voxels. A nearer point can change voxel where
+    ``cos`` / ``sin`` differ by an ulp between two devices or packages."""
+    r, p = np.asarray(rois, np.float64), np.asarray(pts, np.float64)
+    s = p[None, :, :3] - r[:, None, :3]
+    rot = r[:, 6:7] + np.pi / 2
+    # offsets from the grid's low corner along its x (length), y (width)
+    # and z (height) axes, (rois, points) each
+    u = (s[..., 0] * np.cos(rot) - s[..., 1] * np.sin(rot) + r[:, 4:5] / 2,
+         s[..., 0] * np.sin(rot) + s[..., 1] * np.cos(rot) + r[:, 3:4] / 2,
+         s[..., 2])
+    ext = (r[:, 4:5], r[:, 3:4], r[:, 5:6])
+    around = np.ones(u[0].shape, bool)
+    for ui, ei in zip(u, ext):
+        around &= (ui > -margin) & (ui < ei + margin)
+    near = np.zeros(u[0].shape, bool)
+    for ui, ei, n in zip(u, ext, out_size):
+        cell = ei / n
+        near |= np.abs(ui - np.round(ui / cell) * cell) < margin
+    return ~(around & near).any(0)
+
+
+def lidar_scene(rng, n: int, n_objects: int):
+    """A seeded LiDAR-like scene in KITTI's frame: (n, 4) float32 points
+    (x, y, z, intensity) and the objects' bottom-centred boxes (K, 7),
+    (x, y, z, w, l, h, yaw) with KITTI's car size. Ground returns over the
+    front half-plane thin out with range (uniform in log r, as a spinning
+    LiDAR's rings do); 20% of the points lie in the objects, 3% outside
+    the range."""
+    ground = -1.73  # KITTI's sensor height
+    centers = []
+    while len(centers) < n_objects:  # objects at least 6 m apart
+        c = rng.uniform([5.0, -35.0], [65.0, 35.0])
+        if all(np.hypot(*(c - o)) >= 6.0 for o in centers):
+            centers.append(c)
+    centers = np.array(centers)
+    dims = np.array([1.6, 3.9, 1.56]) * rng.uniform(0.9, 1.1, (n_objects, 3))
+    yaw = rng.uniform(-np.pi, np.pi, n_objects)
+    boxes = np.concatenate([centers, np.full((n_objects, 1), ground), dims,
+                            yaw[:, None]], 1)
+    n_obj, n_out = n // 5, 3 * n // 100
+    n_ground = n - n_obj - n_out
+    r = np.exp(rng.uniform(np.log(2.0), np.log(80.0), n_ground))
+    th = rng.uniform(-np.pi / 2, np.pi / 2, n_ground)
+    grd = np.stack([r * np.cos(th), r * np.sin(th),
+                    ground + rng.normal(0.0, 0.03, n_ground)], 1)
+    k = rng.integers(0, n_objects, n_obj)
+    loc = rng.uniform(-0.5, 0.5, (n_obj, 3)) * dims[k]
+    c, s = np.cos(yaw[k]), np.sin(yaw[k])
+    obj = np.stack([centers[k, 0] + c * loc[:, 0] - s * loc[:, 1],
+                    centers[k, 1] + s * loc[:, 0] + c * loc[:, 1],
+                    ground + dims[k, 2] / 2 + loc[:, 2]], 1)
+    out = rng.uniform([-20.0, -60.0, -5.0], [0.0, 60.0, 3.0], (n_out, 3))
+    xyz = np.concatenate([grd, obj, out])
+    pts = np.concatenate([xyz, rng.uniform(0, 1, (n, 1))], 1)
+    return (pts[rng.permutation(n)].astype(np.float32),
+            boxes.astype(np.float32))
+
+
+def detection_clusters(rng, objects, n: int, n_classes: int):
+    """``n`` detections in clusters around ``objects`` (bottom boxes at
+    least 6 m apart): centres within 0.15 m, sizes within 5%, yaw within
+    0.05, so two boxes of one cluster overlap far above a 0.01 IoU and two
+    of different clusters not at all. Gravity-centred (n, 7) boxes and
+    (n, n_classes + 1) scores, the background last."""
+    k = rng.integers(0, len(objects), n)
+    b = objects[k].astype(np.float64)
+    b[:, :2] += rng.uniform(-0.15, 0.15, (n, 2))
+    b[:, 3:6] *= rng.uniform(0.95, 1.05, (n, 3))
+    b[:, 6] += rng.uniform(-0.05, 0.05, n)
+    b[:, 2] += b[:, 5] / 2
+    return (b.astype(np.float32),
+            rng.uniform(size=(n, n_classes + 1)).astype(np.float32))
+
+
+def median_ms(fn, reps: int, setup=None) -> float:
+    """Median device time of ``fn`` over ``reps`` calls after one warm-up,
+    each call between its own CUDA events; ``setup()``, run before each
+    call outside the events, gives ``fn``'s argument."""
+    import torch
+
+    setup = setup or (lambda: None)
+    fn(setup())
+    times = []
+    for _ in range(reps):
+        arg = setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def held(name, got, want, kind: str = "forward") -> float:
+    """Card vs CPU: integer (and bool) tensors identical, float ones within
+    ``VOXEL_TOL[kind]`` times the CPU's largest magnitude (at least 1).
+    Returns the float error over that scale."""
+    import torch
+
+    got = got.detach().cpu()
+    want = want.detach()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"[voxel] {name}: {got.shape} {got.dtype} on "
+                             f"the card, {want.shape} {want.dtype} on the CPU")
+    if not want.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"[voxel] {name}: card and CPU differ")
+        return 0.0
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    err = float((got - want).abs().max()) / scale if want.numel() else 0.0
+    if not err <= VOXEL_TOL[kind]:
+        raise AssertionError(f"[voxel] {name}: card vs CPU {err:.3e} of "
+                             f"{scale:.3g} > {VOXEL_TOL[kind]}")
+    return err
+
+
+def device_profile(fn, runs: int = 2) -> dict:
+    """``runs`` calls of ``fn`` under ``torch.profiler`` after one
+    warm-up: wall ms a call, device busy ms (the kernels' device time, one
+    stream), idle share and device ms by kernel group
+    (``profile_train_step.GROUPS``)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nesie_tpu_torch.tools.profile_train_step import GROUPS, kernel_times
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / runs
+    groups: dict = {}
+    for name, us in kernel_times(prof).items():
+        label = next((g for g, pat in GROUPS if re.search(pat, name)),
+                     "other")
+        groups[label] = groups.get(label, 0.0) + us / 1e3 / runs
+    busy = sum(groups.values())
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                groups=dict(sorted(groups.items(), key=lambda kv: -kv[1])))
+
+
+def voxel_phase(dev, prepared: Path) -> dict:
+    """[voxel]: the voxel and outdoor stack on the card at public configs'
+    shapes, every step again on the CPU from the same seeded inputs (see
+    ``VOXEL``); counts set to 0 before and read after (path ``voxel``:
+    the stack launches no kernel of the port). ``prepared``: a ScanNet
+    tree written by ``create_data`` ([migrate]'s), for the GT-paste
+    database. Prints each step's median ms of ``VOXEL["timed"]`` calls
+    after a warm-up and its peak GiB."""
+    import torch
+
+    from nesie_tpu_torch.core import coders
+    from nesie_tpu_torch.core import multiclass_nms as mnms
+    from nesie_tpu_torch.core import pcdet_nms
+    from nesie_tpu_torch.core.anchors import Anchor3DRangeGenerator
+    from nesie_tpu_torch.core.coders import (
+        centerpoint_decode,
+        delta_xyzwhlr_decode,
+        delta_xyzwhlr_encode,
+    )
+    from nesie_tpu_torch.core.gaussian import (
+        draw_heatmap_gaussian,
+        gaussian_radius,
+    )
+    from nesie_tpu_torch.core.np_box_ops import (
+        box_collision_test,
+        center_to_corner_box2d,
+        points_in_rbbox,
+    )
+    from nesie_tpu_torch.data import io
+    from nesie_tpu_torch.data.dbsampler import DataBaseSampler
+    from nesie_tpu_torch.data.outdoor_transforms import object_sample
+    from nesie_tpu_torch.data.scannet_meta import CLASS_NAMES
+    from nesie_tpu_torch.data.voxel_generator import VoxelGenerator
+    from nesie_tpu_torch.nn.sparse_block import SparseBasicBlock, SparseConv3d
+    from nesie_tpu_torch.ops import _build
+    from nesie_tpu_torch.ops.roiaware_pool import roiaware_pool3d
+    from nesie_tpu_torch.ops.spconv import (
+        SparseTensor,
+        sparse_conv_transpose3d,
+        sparse_inverse_conv3d,
+        sparse_maxpool3d,
+    )
+    from nesie_tpu_torch.ops.voxel import dynamic_scatter, voxelize
+    from nesie_tpu_torch.tools import create_data
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    v, reps = VOXEL, VOXEL["timed"]
+    rng = np.random.default_rng(v["seed"])
+    cloud_np, objects = lidar_scene(rng, v["points"], v["objects"])
+    cloud = torch.from_numpy(cloud_np)
+    steps, identical = {}, {}
+
+    def step(name, fn, setup=None, host=False):
+        """Median of ``reps`` calls after a warm-up (device time; host
+        clock for the host-side steps) and the peak GiB."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if host:
+            fn(None)
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn(None)
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = float(np.median(times))
+        else:
+            ms = median_ms(fn, reps, setup)
+        steps[name] = dict(ms=ms, host=host, peak_gib=torch.cuda
+                           .max_memory_allocated() / 2**30)
+
+    _build.reset_launch_counts()
+    # ----- the voxel path
+    # voxelization: SECOND's voxel layer, train and test caps
+    cloud_d = cloud.to(dev)
+    vox_args = (v["voxel_size"], KITTI_RANGE, v["max_points"])
+    for cap, tag in zip(v["max_voxels"], ("train", "test")):
+        got = voxelize(cloud_d, *vox_args, cap)
+        want = voxelize(cloud, *vox_args, cap)
+        for field in got._fields:
+            held(f"voxelize {tag} {field}", getattr(got, field),
+                 getattr(want, field))
+        step(f"voxelize {tag} ({cap})",
+             lambda _, c=cap: voxelize(cloud_d, *vox_args, c))
+    test_vox = want  # the test cap's voxels feed the sparse network
+    n_occupied = int(voxelize(cloud_d, *vox_args, len(cloud)).num_voxels)
+    # VoxelGenerator (host numpy): first-arrival order; each of its voxels
+    # holds the same points, in the same order, as voxelize's row of that
+    # voxel
+    full = voxelize(cloud, *vox_args, len(cloud))
+    n_full = int(full.num_voxels)
+    _, gh, gw = v["grid"]
+
+    def lin_of(zyx):  # increasing in voxelize's row order
+        zyx = zyx.astype(np.int64)
+        return (zyx[:, 0] * gh + zyx[:, 1]) * gw + zyx[:, 2]
+
+    full_lin = lin_of(full.coords[:n_full].numpy())
+    for cap in v["max_voxels"]:
+        gen = VoxelGenerator(v["voxel_size"], KITTI_RANGE, v["max_points"],
+                             cap)
+        g_vox, g_coords, g_num = gen.generate(cloud_np)
+        step(f"VoxelGenerator ({cap})", lambda _, g=gen: g.generate(cloud_np),
+             host=True)
+        rows = np.searchsorted(full_lin, lin_of(g_coords))
+        if not (len(g_coords) == min(cap, n_full)
+                and np.array_equal(full.coords.numpy()[rows], g_coords)
+                and np.array_equal(full.num_points.numpy()[rows], g_num)
+                and np.array_equal(full.voxels.numpy()[rows], g_vox)):
+            raise AssertionError(f"[voxel] VoxelGenerator ({cap}): its "
+                                 "voxels differ from voxelize's")
+    # dynamic scatter on the same voxel ids (the uncapped voxel of each
+    # point, out-of-range points -1)
+    lo, hi = torch.tensor(KITTI_RANGE[:3]), torch.tensor(KITTI_RANGE[3:])
+    size = torch.tensor(v["voxel_size"])
+    grid_f = torch.floor((cloud[:, :3] - lo) / size).long()
+    dims = torch.ceil((hi - lo) / size).long()  # x, y, z as voxelize's
+    inside = ((grid_f >= 0) & (grid_f < dims)).all(1)
+    lin = (grid_f[:, 2] * dims[1] + grid_f[:, 1]) * dims[0] + grid_f[:, 0]
+    occupied = torch.unique(lin[inside])
+    if len(occupied) != n_full:
+        raise AssertionError(f"[voxel] {len(occupied)} voxel ids, "
+                             f"voxelize found {n_full}")
+    ids = torch.where(inside, torch.searchsorted(occupied, lin), -1)
+    ids_d = ids.to(dev)
+    for mode in ("mean", "max"):
+        held(f"dynamic_scatter {mode}",
+             dynamic_scatter(cloud_d, ids_d, n_full, mode),
+             dynamic_scatter(cloud, ids, n_full, mode))
+        step(f"dynamic_scatter {mode}",
+             lambda _, m=mode: dynamic_scatter(cloud_d, ids_d, n_full, m))
+
+    # the sparse network at SECOND's grid, V = 40000, float32, TF32 off
+    feats = test_vox.voxels.sum(1) / test_vox.num_points.clamp(min=1)[:, None]
+    torch.manual_seed(v["seed"])
+    mods = torch.nn.ModuleList([SparseBasicBlock(4, 16),
+                                SparseBasicBlock(16, 16),
+                                SparseConv3d(16, 32, stride=2),
+                                SparseBasicBlock(32, 32)]).train()
+    w_up = torch.nn.ParameterList([
+        torch.nn.Parameter(torch.randn(27, 32, 16) * 0.05) for _ in range(2)])
+    net = {cpu: (mods, w_up)}
+    net[dev] = (copy.deepcopy(mods).to(dev), copy.deepcopy(w_up).to(dev))
+
+    def sparse_net(d):
+        m, w = net[d]
+        x = SparseTensor(feats.to(d), test_vox.coords.to(d),
+                         test_vox.valid.to(d), v["grid"])
+        b1 = m[0](x)
+        b2 = m[1](b1)
+        down = m[2](b2)
+        b3 = m[3](down)
+        pooled = sparse_maxpool3d(b3)
+        inv = sparse_inverse_conv3d(b3, w[0], b2)
+        up = sparse_conv_transpose3d(pooled, w[1])
+        loss = (inv.features ** 2).sum() + (up.features ** 2).sum()
+        return loss, dict(block1=b1, block2=b2, down=down, block3=b3,
+                          maxpool=pooled, inverse=inv, transpose=up)
+
+    outs = {}
+    for d in (cpu, dev):
+        loss, layers = sparse_net(d)
+        loss.backward()
+        m, w = net[d]
+        grads = {n: p.grad for n, p in m.named_parameters()}
+        grads.update({f"w_up.{i}": p.grad for i, p in enumerate(w)})
+        outs[d] = (loss, layers, grads)
+    sp_err = 0.0
+    for name, g in outs[dev][1].items():
+        c = outs[cpu][1][name]
+        held(f"sparse {name} coords", g.coords, c.coords)
+        held(f"sparse {name} valid", g.valid, c.valid)
+        sp_err = max(sp_err, held(f"sparse {name} features", g.features,
+                                  c.features))
+    sp_grad_err = max(held(f"sparse grad {n}", g, outs[cpu][2][n], "grad")
+                      for n, g in outs[dev][2].items())
+    held("sparse loss", outs[dev][0], outs[cpu][0], "grad")
+    sites = {n: int(t.valid.sum()) for n, t in outs[cpu][1].items()}
+    step("sparse net forward", lambda _: sparse_net(dev))
+    step("sparse net backward", lambda loss_: loss_.backward(),
+         setup=lambda: sparse_net(dev)[0])
+    profiles = {"sparse net forward + backward":
+                device_profile(lambda: sparse_net(dev)[0].backward())}
+    del outs, net
+
+    # RoI-aware pooling: PartA2's extractors, 128 rois over 16384 points
+    r = VOXEL_ROI
+    pick = rng.choice(np.flatnonzero(points_in_rbbox(
+        cloud_np[:, :3], objects * np.float32([1, 1, 1, 1.5, 1.5, 1.2, 1]))
+        .any(1) | (rng.uniform(size=len(cloud_np)) < 0.05)), r["points"],
+        replace=False)
+    k = rng.integers(0, len(objects), r["rois"])
+    rois = objects[k].copy()
+    rois[:, :2] += rng.uniform(-0.5, 0.5, (r["rois"], 2))
+    rois[:, 3:6] *= rng.uniform(0.9, 1.2, (r["rois"], 3))
+    rois[:, 6] += rng.uniform(-0.2, 0.2, r["rois"])
+    size = (r["out_size"],) * 3
+    ok = roi_off_faces(rois, cloud_np[pick], size, r["face_margin"])
+    roi_pts = torch.from_numpy(cloud_np[pick][ok, :3])
+    roi_feat = torch.from_numpy(rng.normal(
+        size=(len(roi_pts), r["channels"])).astype(np.float32))
+    rois_t = torch.from_numpy(rois)
+    for mode in ("max", "avg"):
+        res = {}
+        for d in (cpu, dev):
+            f = roi_feat.to(d).detach().requires_grad_()
+            pooled = roiaware_pool3d(rois_t.to(d), roi_pts.to(d), f, size,
+                                     r["max_pts"], mode)
+            (pooled ** 2).sum().backward()
+            res[d] = (pooled, f.grad)
+        held(f"roiaware {mode}", res[dev][0], res[cpu][0])
+        identical[f"roiaware {mode}"] = torch.equal(
+            res[dev][0].detach().cpu(), res[cpu][0].detach())
+        held(f"roiaware {mode} grad", res[dev][1], res[cpu][1], "grad")
+        filled = int((res[cpu][0].detach().abs().sum(-1) > 0).sum())
+        f_d = roi_feat.to(dev).detach().requires_grad_()
+        args_d = (rois_t.to(dev), roi_pts.to(dev))
+        step(f"roiaware {mode} forward", lambda _, m=mode: roiaware_pool3d(
+            *args_d, f_d, size, r["max_pts"], m))
+        step(f"roiaware {mode} backward", lambda out: out.backward(),
+             setup=lambda m=mode: (roiaware_pool3d(
+                 *args_d, f_d, size, r["max_pts"], m) ** 2).sum())
+    del res
+
+    # anchors and the residual coder: SECOND's 3-class anchors
+    a = VOXEL_ANCHORS
+    anchors = {}
+    for d in (cpu, dev):
+        gen = Anchor3DRangeGenerator(ranges=a["ranges"], sizes=a["sizes"],
+                                     rotations=a["rotations"],
+                                     reshape_out=False, device=d)
+        anchors[d] = gen.grid_anchors([a["featmap"]])[0]
+    held("anchors", anchors[dev], anchors[cpu])
+    identical["anchors"] = torch.equal(anchors[dev].cpu(), anchors[cpu])
+    flat = anchors[cpu].reshape(-1, 7)
+    gt = flat.clone()
+    gt[:, :3] += torch.from_numpy(rng.normal(0, 0.4, (len(gt), 3))
+                                  .astype(np.float32))
+    gt[:, 3:6] *= torch.from_numpy(rng.uniform(0.8, 1.25, (len(gt), 3))
+                                   .astype(np.float32))
+    gt[:, 6] += torch.from_numpy(rng.normal(0, 0.3, len(gt))
+                                 .astype(np.float32))
+    enc = {d: delta_xyzwhlr_encode(flat.to(d), gt.to(d)) for d in (cpu, dev)}
+    held("delta_xyzwhlr_encode", enc[dev], enc[cpu])
+    dec = {d: delta_xyzwhlr_decode(flat.to(d), enc[d]) for d in (cpu, dev)}
+    held("delta_xyzwhlr_decode", dec[dev], dec[cpu])
+    trip = float((dec[cpu] - gt).abs().max())
+    if not trip <= 1e-4 * max(1.0, float(gt.abs().max())):
+        raise AssertionError(f"[voxel] encode/decode round trip {trip:.3e}")
+    flat_d, gt_d = flat.to(dev), gt.to(dev)
+    step("anchors (200 x 176, 3 classes x 2 rotations)", lambda _: (
+        Anchor3DRangeGenerator(ranges=a["ranges"], sizes=a["sizes"],
+                               rotations=a["rotations"], reshape_out=False,
+                               device=dev).grid_anchors([a["featmap"]])))
+    step("delta_xyzwhlr encode + decode", lambda _: delta_xyzwhlr_decode(
+        flat_d, delta_xyzwhlr_encode(flat_d, gt_d)))
+
+    # SECOND's test-time NMS on 1000 boxes of 3 classes, and pcdet's
+    n = VOXEL_NMS
+    boxes, scores = detection_clusters(rng, objects, n["boxes"], n["classes"])
+    boxes_t, scores_t = torch.from_numpy(boxes), torch.from_numpy(scores)
+    bev = boxes_t[:, [0, 1, 3, 4, 6]]
+    for what, iou in (
+            ("box3d_multiclass_nms", mnms._rotated_iou_matrix(
+                mnms._reference_bev(bev))),
+            ("pcdet nms", pcdet_nms.boxes_iou_bev(boxes_t, boxes_t))):
+        nonzero = iou[iou > 0]
+        if not bool((nonzero > 10 * n["nms_thr"]).all()):
+            raise AssertionError(f"[voxel] {what}: an IoU near the "
+                                 "threshold makes the keep list ill-posed")
+    nms_args = (n["score_thr"], n["nms_thr"], n["max_num"])
+    mc = {d: mnms.box3d_multiclass_nms(boxes_t.to(d), scores_t.to(d),
+                                       *nms_args) for d in (cpu, dev)}
+    for name, g, c in zip(("boxes", "scores", "labels", "valid"), mc[dev],
+                          mc[cpu]):
+        held(f"box3d_multiclass_nms {name}", g, c)
+    best = scores_t[:, :-1].max(1).values
+    keep = {d: pcdet_nms.nms(boxes_t.to(d), best.to(d), n["nms_thr"])[0]
+            for d in (cpu, dev)}
+    held("pcdet nms keep", keep[dev], keep[cpu])
+    boxes_d, scores_d, best_d = (t.to(dev) for t in (boxes_t, scores_t, best))
+    step("box3d_multiclass_nms", lambda _: mnms.box3d_multiclass_nms(
+        boxes_d, scores_d, *nms_args))
+    profiles["box3d_multiclass_nms"] = device_profile(
+        lambda: mnms.box3d_multiclass_nms(boxes_d, scores_d, *nms_args))
+    step("pcdet nms", lambda _: pcdet_nms.nms(boxes_d, best_d, n["nms_thr"]))
+
+    # CenterPoint nuScenes: decode a 2-class task with velocity, then
+    # circle NMS; the gaussian heatmap targets on the same map
+    cp = CENTERPOINT
+    B, C, H = cp["b"], cp["classes"], cp["size"]
+    maps = dict(
+        heat=1 / (1 + np.exp(-(rng.normal(size=(B, C, H, H)) - 2.0))),
+        rot_sine=rng.normal(size=(B, 1, H, H)),
+        rot_cosine=rng.normal(size=(B, 1, H, H)),
+        hei=rng.normal(size=(B, 1, H, H)),
+        dim=rng.uniform(0.5, 3.0, (B, 3, H, H)),
+        vel=rng.normal(size=(B, 2, H, H)),
+        reg=rng.uniform(0, 1, (B, 2, H, H)))
+    maps = {key: torch.from_numpy(val.astype(np.float32))
+            for key, val in maps.items()}
+    dec_kw = dict(pc_range=cp["pc_range"], out_size_factor=cp["out_size_factor"],
+                  voxel_size=cp["voxel_size"],
+                  post_center_range=cp["post_center_range"],
+                  max_num=cp["max_num"], score_threshold=cp["score_threshold"])
+
+    def centerpoint(d, mp):
+        out = centerpoint_decode(**mp, **dec_kw)
+        keep_ = [mnms.circle_nms(torch.cat([out.bboxes[b, :, :2],
+                                            out.scores[b, :, None]], 1),
+                                 cp["min_radius"], out.valid[b])
+                 for b in range(B)]
+        return out, torch.stack(keep_)
+
+    maps_d = {key: val.to(dev) for key, val in maps.items()}
+    (cp_c, keep_c), (cp_d, keep_d) = (centerpoint(cpu, maps),
+                                     centerpoint(dev, maps_d))
+    for name, g, c in zip(cp_c._fields, cp_d, cp_c):
+        held(f"centerpoint_decode {name}", g, c)
+    held("circle_nms keep", keep_d, keep_c)
+    for name, g, c in zip(("scores", "inds", "classes", "ys", "xs"),
+                          coders._topk_heatmap(maps_d["heat"], cp["max_num"]),
+                          coders._topk_heatmap(maps["heat"], cp["max_num"])):
+        held(f"centerpoint top-k {name}", g, c)
+    step("centerpoint_decode + circle_nms", lambda _: centerpoint(dev, maps_d))
+    centres = np.stack([rng.integers(8, H - 8, cp["gaussians"]),
+                        rng.integers(8, H - 8, cp["gaussians"])], 1).tolist()
+    # CenterPoint's radius for a car in map cells, at least 2
+    radius = max(2, int(gaussian_radius(
+        (3.9 / (cp["voxel_size"][0] * cp["out_size_factor"]),
+         1.6 / (cp["voxel_size"][1] * cp["out_size_factor"])), 0.1)))
+
+    def heatmap(d):
+        hm = torch.zeros((H, H), device=d)
+        for centre in centres:
+            hm = draw_heatmap_gaussian(hm, centre, radius)
+        return hm
+
+    held("draw_heatmap_gaussian", heatmap(dev), heatmap(cpu))
+    step(f"draw_heatmap_gaussian x {cp['gaussians']}", lambda _: heatmap(dev))
+
+    # GT-paste: the database of [migrate]'s ScanNet tree, one scene pasted
+    gt_db_args = ["scannet", "--gt-db", "--out-dir", str(prepared)]
+    with contextlib.redirect_stdout(None):
+        db = create_data.main(gt_db_args)
+        step("create_data --gt-db", lambda _: create_data.main(gt_db_args),
+             host=True)
+    info = io.load_infos(prepared / "scannet_infos_train.pkl")[0]
+    scene = io.load_points_bin(prepared / info["pts_path"], load_dim=6,
+                               use_dim=range(6))
+    raw = np.asarray(info["annos"]["gt_boxes_upright_depth"], np.float32)
+    gt_boxes = np.zeros((len(raw), 7), np.float32)
+    gt_boxes[:, :6] = raw
+    gt_boxes[:, 2] -= gt_boxes[:, 5] / 2
+    gt_labels = np.asarray(info["annos"]["class"]).reshape(-1)
+
+    def paste(_=None):
+        sampler = DataBaseSampler(
+            db, prepared, rate=1.0,
+            prepare={"filter_by_min_points": dict.fromkeys(CLASS_NAMES, 5)},
+            sample_groups=dict.fromkeys(CLASS_NAMES, 3), classes=CLASS_NAMES,
+            point_dims=3, rng=np.random.default_rng(v["seed"]))
+        return object_sample(scene, gt_boxes, gt_labels, sampler)
+
+    pasted = paste()
+    for a_, b_ in zip(paste(), pasted):
+        if not np.array_equal(a_, b_):
+            raise AssertionError("[voxel] GT-paste: two runs from one seed "
+                                 "differ")
+    step("DataBaseSampler + sample_all + object_sample", paste, host=True)
+    new_pts, new_boxes, _ = pasted
+    n_pasted = len(new_boxes) - len(gt_boxes)
+    corners = center_to_corner_box2d(new_boxes[:, :2], new_boxes[:, 3:5],
+                                     new_boxes[:, 6])
+    coll = box_collision_test(corners, corners)
+    np.fill_diagonal(coll, False)
+    coll[:len(gt_boxes), :len(gt_boxes)] = False  # the scene's own boxes
+    inside = points_in_rbbox(new_pts[:, :3], new_boxes[len(gt_boxes):])
+    if not (n_pasted > 0 and not coll.any() and inside.any(0).all()):
+        raise AssertionError(f"[voxel] GT-paste: {n_pasted} boxes pasted, "
+                             f"collisions {int(coll.sum())}")
+    paste_range = (*(np.floor(new_pts[:, :3].min(0)) - 0.1),
+                   *(np.ceil(new_pts[:, :3].max(0)) + 0.1))
+    paste_args = ((0.05, 0.05, 0.05), paste_range, 5, 40000)
+    pasted_t = torch.from_numpy(new_pts)
+    pv = {d: voxelize(pasted_t.to(d), *paste_args) for d in (cpu, dev)}
+    for field in pv[cpu]._fields:
+        held(f"GT-paste voxelize {field}", getattr(pv[dev], field),
+             getattr(pv[cpu], field))
+    torch.cuda.synchronize()
+    launches = {"voxel": _build.launch_counts()}
+    # ----- end of the voxel path
+    print(f"[voxel] launches during the voxel path: {launches['voxel']}")
+    if any(launches["voxel"].values()):
+        raise AssertionError("[voxel] the stack launched a kernel of the port")
+
+    print(f"[voxel] cloud: {v['points']} points x 4 in KITTI's range "
+          f"{KITTI_RANGE}, {v['objects']} objects; {n_occupied} occupied "
+          f"voxels at {v['voxel_size']}; VoxelGenerator's voxels identical "
+          "to voxelize's")
+    print(f"[voxel] sparse net on {v['grid']}, V={v['max_voxels'][1]}: "
+          f"active sites {sites}; "
+          f"card vs CPU: sites identical, features within {sp_err:.2e}, "
+          f"weight gradients within {sp_grad_err:.2e} of their scale")
+    print(f"[voxel] roiaware_pool3d: {r['rois']} rois over {len(roi_pts)} "
+          f"points ({int((~ok).sum())} of {r['points']} dropped within "
+          f"{r['face_margin']} m of a voxel face), C={r['channels']}, "
+          f"out {r['out_size']}, {filled} voxels filled")
+    print(f"[voxel] NMS: box3d_multiclass_nms keeps "
+          f"{int(mc[cpu][3].sum())} of {n['boxes']} x {n['classes']}, pcdet "
+          f"nms {len(keep[cpu])}; centerpoint_decode {int(cp_c.valid.sum())} "
+          f"valid of {B} x {cp['max_num']}, circle_nms keeps "
+          f"{int(keep_c.sum())}; identical on the card")
+    print(f"[voxel] GT-paste on {prepared.name}'s first training scan: "
+          f"{n_pasted} boxes pasted, {len(new_pts)} points, no collision; "
+          "voxelized identically on the card")
+    print(f"[voxel] floats bit-identical on the card: {identical}")
+    for name, st in steps.items():
+        clock = " (host clock)" if st["host"] else ""
+        print(f"[voxel] {name}: median {st['ms']:.4f} ms of {reps}{clock}, "
+              f"peak {st['peak_gib']:.4f} GiB")
+    for name, prof in profiles.items():
+        top = ", ".join(f"{g} {ms:.3f}" for g, ms in
+                        list(prof["groups"].items())[:4])
+        print(f"[voxel] {name} under the profiler: wall "
+              f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f}"
+              f" ms, idle share {prof['idle_share']:.3f}; device ms: {top}")
+    out = dict(launches=launches, steps=steps, profiles=profiles,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[voxel] phase: {out['phase_s']:.2f} s")
+    return out
+
+
 def make_scene_points(i: int, n: int):
     """Room ``i`` of the SUN RGB-D forward's batch, ``n`` points."""
     from nesie_tpu_torch.data.synthetic import make_scene
@@ -3581,6 +4221,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     migrate = migrate_phase(dev)
     launches.update(migrate["launches"])
+
+    # ---- 13. the voxel and outdoor stack --------------------------------
+    torch.cuda.empty_cache()
+    voxel = voxel_phase(dev, ROOT / "build" / "migrate_smoke" / "scannet")
+    launches.update(voxel["launches"])
 
     sources = {
         "fps_onchip": ("nesie_tpu_torch/csrc/fps_onchip.cu",

@@ -5,7 +5,8 @@ checkpoints.
 (nested dicts of numpy arrays; Nesie or SAQE head), a PointNet2SASSG +
 VoteHead detector's or a PointNet2Segmentor's, or a params-shaped tree
 alone, onto the port's ``state_dict``; ``module_state_dict_from_flax``
-one SA module's (plain, MSG, PAConv) or conv head's. The port's
+one SA module's (plain, MSG, PAConv), conv head's, sparse convolution's
+or SparseBasicBlock's. The port's
 names are the reference's, so ``nesie_tpu.convert_torch.convert_state_dict``
 maps the port's ``state_dict()`` back: the two are inverses.
 
@@ -138,6 +139,25 @@ def _conv_head(sd, prefix, params, stats):
             _linear(sd, f"{prefix}.{name}", params[name])
 
 
+def _sparse_conv(sd, prefix, params):
+    """flax SubMConv3d / SparseConv3d: the kernel is already
+    ``(k^3, C_in, C_out)``."""
+    sd[f"{prefix}.weight"] = np.asarray(params["kernel"], np.float32)
+    if "bias" in params:
+        sd[f"{prefix}.bias"] = np.asarray(params["bias"], np.float32)
+
+
+def _sparse_block(sd, prefix, params, stats):
+    """flax SparseBasicBlock: conv1/conv2, bn{1,2}/BatchNorm_0, the
+    optional ``down`` Dense."""
+    for i in (1, 2):
+        _sparse_conv(sd, f"{prefix}.conv{i}", params[f"conv{i}"])
+        _bn(sd, f"{prefix}.bn{i}", params[f"bn{i}"]["BatchNorm_0"],
+            _sub(stats, f"bn{i}", "BatchNorm_0"))
+    if "down" in params:
+        _linear(sd, f"{prefix}.down", params["down"])
+
+
 def _tensors(sd: dict) -> dict:
     return {k: torch.tensor(v) for k, v in sd.items()}
 
@@ -145,11 +165,16 @@ def _tensors(sd: dict) -> dict:
 def module_state_dict_from_flax(params: dict,
                                 batch_stats: dict | None = None) -> dict:
     """One module's flax variables -> the port module's state_dict: a
-    PointSAModule, PointSAModuleMSG or PAConvSAModule, or a
-    BaseConvBboxHead or ReliableConvBboxHead (told apart by their keys)."""
+    PointSAModule, PointSAModuleMSG or PAConvSAModule, a
+    BaseConvBboxHead or ReliableConvBboxHead, a SubMConv3d or SparseConv3d,
+    or a SparseBasicBlock (told apart by their keys)."""
     sd: dict = {}
     if "shared" in params or "conv_cls" in params:
         _conv_head(sd, "x", params, batch_stats)
+    elif "conv1" in params and "bn1" in params:
+        _sparse_block(sd, "x", params, batch_stats)
+    elif np.ndim(params.get("kernel")) == 3:
+        _sparse_conv(sd, "x", params)
     else:
         _sa(sd, "x", params, batch_stats)
     return _tensors({k[2:]: v for k, v in sd.items()})

@@ -10,6 +10,7 @@ from .pointops import (
     three_interpolate,
     three_nn,
 )
+from .roiaware_pool import roiaware_pool3d
 
 __all__ = [
     "ball_query",
@@ -19,6 +20,7 @@ __all__ = [
     "group_points",
     "knn",
     "points_sampler",
+    "roiaware_pool3d",
     "square_distance",
     "three_interpolate",
     "three_nn",

@@ -13,10 +13,15 @@ SUN RGB-D (VoteNet-style sunrgbd_trainval layout):
     python -m nesie_tpu_torch.tools.create_data sunrgbd \\
         --raw-dir /data/sunrgbd_trainval --out-dir /data/sunrgbd
 
+GT-paste database from the infos already in ``--out-dir`` (per-object
+``.bin`` files under ``<dataset>_gt_database/`` and
+``<dataset>_dbinfos_train.pkl``; ``--raw-dir`` not needed):
+    python -m nesie_tpu_torch.tools.create_data scannet --gt-db \\
+        --out-dir /data/scannet
+
 Both subcommands draw their subsamples from one ``default_rng(0)`` stream,
 scene after scene and split after split, as the JAX tool does, so the two
-write the same files. The GT-paste database (``--gt-db``) waits for the
-port of ``data/dbsampler``.
+write the same files.
 """
 from __future__ import annotations
 
@@ -71,19 +76,40 @@ def prep_sunrgbd(args):
         print(f"  wrote sunrgbd_infos_{split}.pkl")
 
 
+def prep_gt_db(args):
+    from nesie_tpu_torch.data.dbsampler import create_gt_database
+    from nesie_tpu_torch.data.scannet_meta import CLASS_NAMES as SCANNET_CLASSES
+    from nesie_tpu_torch.data.sunrgbd_prep import CLASS_NAMES as SUNRGBD_CLASSES
+
+    classes = SCANNET_CLASSES if args.dataset == "scannet" else SUNRGBD_CLASSES
+    info_path = Path(args.out_dir) / f"{args.dataset}_infos_train.pkl"
+    db = create_gt_database(info_path, args.out_dir, args.out_dir, classes,
+                            db_prefix=args.dataset)
+    print(f"  wrote {db}")
+    return db
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Preprocess raw datasets")
     p.add_argument("dataset", choices=["scannet", "sunrgbd"])
-    p.add_argument("--raw-dir", required=True)
+    p.add_argument("--raw-dir", default=None)
     p.add_argument("--out-dir", required=True)
     p.add_argument("--splits", nargs="*", default=["train", "val"])
     p.add_argument("--splits-dir", default=None)
     p.add_argument("--label-map", default=None)
-    return p.parse_args(argv)
+    p.add_argument("--gt-db", action="store_true",
+                   help="build the GT-paste database from existing infos")
+    args = p.parse_args(argv)
+    if not args.gt_db and not args.raw_dir:
+        p.error("--raw-dir is required unless --gt-db")
+    return args
 
 
 def main(argv=None):
+    """Returns the path of the database pickle with ``--gt-db``."""
     args = parse_args(argv)
+    if args.gt_db:
+        return prep_gt_db(args)
     if args.dataset == "scannet":
         prep_scannet(args)
     else:

@@ -628,3 +628,74 @@ def test_points_sampler_and_knn_on_card(cuda):
     q = _uniform((4, 512, 3), seed=92)
     got = pointops.knn(16, xyz.to(cuda), q.to(cuda))
     assert torch.equal(got.cpu(), pointops.knn(16, xyz, q))
+
+
+@pytest.mark.gpu
+def test_voxel_stack_on_card(cuda):
+    """The voxel stack is plain PyTorch on both devices and launches none
+    of the port's kernels: ``voxelize`` identical to the CPU; a
+    ``SparseBasicBlock`` (train mode) forward and backward with the same
+    output sites, features within 1e-5 and weight gradients within 1e-4
+    of their largest magnitude; ``roiaware_pool3d`` max identical and avg
+    within 1e-5, their feature gradients within 1e-5, on the points
+    farther than 1e-4 m from every voxel face of their rois
+    (``chip_smoke.roi_off_faces``)."""
+    import chip_smoke
+    from nesie_tpu_torch.nn.sparse_block import SparseBasicBlock
+    from nesie_tpu_torch.ops import roiaware_pool3d
+    from nesie_tpu_torch.ops.spconv import SparseTensor
+    from nesie_tpu_torch.ops.voxel import voxelize
+
+    _build.reset_launch_counts()
+    pts = _uniform((20000, 4), seed=100, scale=10.0)
+    pts[:, 2] *= 0.2
+    args = ((0.1, 0.1, 0.2), (0, 0, 0, 10, 10, 2), 5, 4000)
+    want = voxelize(pts, *args)
+    got = voxelize(pts.to(cuda), *args)
+    for field in want._fields:
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field))
+
+    torch.manual_seed(0)
+    block = SparseBasicBlock(4, 16).train()
+    block_gpu = SparseBasicBlock(4, 16).train().to(cuda)
+    block_gpu.load_state_dict(block.state_dict())
+    feats = want.voxels.sum(1) / want.num_points.clamp(min=1)[:, None]
+    outs = []
+    for dev, mod in ((torch.device("cpu"), block), (cuda, block_gpu)):
+        x = SparseTensor(feats.to(dev), want.coords.to(dev),
+                         want.valid.to(dev), (10, 100, 100))
+        out = mod(x)
+        (out.features ** 2).sum().backward()
+        outs.append((out, {n: p.grad.cpu() for n, p in mod.named_parameters()}))
+    (cpu_out, cpu_grad), (gpu_out, gpu_grad) = outs
+    assert torch.equal(gpu_out.valid.cpu(), cpu_out.valid)
+    assert torch.allclose(gpu_out.features.detach().cpu(),
+                          cpu_out.features.detach(), atol=1e-5, rtol=0)
+    for name, g in cpu_grad.items():
+        assert torch.allclose(gpu_grad[name], g, rtol=0,
+                              atol=1e-4 * float(g.abs().max())), name
+
+    rng = np.random.default_rng(101)
+    rois = torch.from_numpy(np.concatenate([
+        rng.uniform(2, 8, (16, 2)), rng.uniform(0, 0.3, (16, 1)),
+        rng.uniform(1, 3, (16, 3)), rng.uniform(-3, 3, (16, 1))],
+        1).astype(np.float32))
+    ok = chip_smoke.roi_off_faces(rois.numpy(), pts[:, :3].numpy(),
+                                  (6, 6, 6), 1e-4)
+    xyz = pts[torch.from_numpy(ok), :3].contiguous()
+    f = _uniform((len(xyz), 8), seed=102)
+    for mode in ("max", "avg"):
+        res = []
+        for dev in (torch.device("cpu"), cuda):
+            fd = f.to(dev).detach().requires_grad_()
+            pooled = roiaware_pool3d(rois.to(dev), xyz.to(dev), fd,
+                                     (6, 6, 6), 32, mode)
+            (pooled ** 2).sum().backward()
+            res.append((pooled.detach().cpu(), fd.grad.cpu()))
+        (p_cpu, g_cpu), (p_gpu, g_gpu) = res
+        if mode == "max":
+            assert torch.equal(p_gpu, p_cpu)
+        assert torch.allclose(p_gpu, p_cpu, atol=1e-5, rtol=0)
+        assert torch.allclose(g_gpu, g_cpu, atol=1e-5, rtol=0)
+    torch.cuda.synchronize()
+    assert not any(_build.launch_counts().values())
