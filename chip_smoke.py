@@ -177,7 +177,24 @@ file; fails without them. In order:
    + ``circle_nms`` (4 x 2 x 128 x 128, 500 boxes) and
    ``draw_heatmap_gaussian``; ``create_data scannet --gt-db`` on
    [migrate]'s tree, ``DataBaseSampler.sample_all`` + ``object_sample``
-   on one scene, the pasted scene voxelized on both devices.
+   on one scene, the pasted scene voxelized on both devices;
+14. [diagnose], the port's last modules, counts set to 0 before and read
+   after each path: ``tools/overfit_check`` at its defaults (the
+   flagship, B=8 x 40000, 16 generated scenes, 300 supervised steps at
+   lr 4e-3; path ``overfit``, exactly 300 training and 2 eval forwards'
+   launches), mAP_0.25 above its floor of 0.15, and the trained model's
+   head outputs decoded again on the CPU (keep lists and boxes identical,
+   scores within ``OVERFIT_SCORE_TOL``, ``indoor_eval`` within
+   ``OVERFIT_MAP_TOL``); ``tools/diagnose_teacher`` at ``DIAGNOSE``'s cut
+   regime, then ``tools/probe_thresholds`` and ``tools/jitter_delta`` on
+   the pretrain it leaves (path ``diagnose``, every launch predicted from
+   the forwards the tools run), each tool's JSON printed; ``nn/mono3d``'s
+   flip and merge at the shapes of FCOS3D on nuScenes, identical card
+   against CPU, and the shell's forward and flip TTA with a small conv
+   backbone and head, and ``eval/instance_seg``'s ScanNet benchmark on
+   [migrate]'s generated scans (path ``mono3d``: no kernel);
+   ``tools/flops_analysis`` at its defaults (path ``flops``: the B=8 x
+   40000 eval forward and the 4 + 8 semi step).
 
 Prints ``{"kernels": [...]}``, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -390,6 +407,39 @@ CENTERPOINT = dict(b=4, classes=2, size=128, max_num=500, score_threshold=0.1,
 # least 1): forwards are elementwise or short sums (1e-5), gradients sum
 # over up to 40000 rows (1e-4)
 VOXEL_TOL = dict(forward=1e-5, grad=1e-4)
+# [diagnose]: the port's last modules. overfit_check at its defaults (the
+# flagship at B=8 x 40000, 16 generated scenes, 300 steps at lr 4e-3), its
+# trained model's decode held card against CPU: keep lists and boxes
+# identical, scores within OVERFIT_SCORE_TOL, indoor_eval within
+# OVERFIT_MAP_TOL. diagnose_teacher, then probe_thresholds and
+# jitter_delta on the pretrain it leaves, at DIAGNOSE's cut regime. The
+# mono3d flip / merge on dense maps at the shapes of mmdetection3d's
+# FCOS3D on nuScenes (configs/fcos3d/fcos3d_r101_caffe_fpn_gn-head_dcn_
+# 2x8_1x_nus-mono3d.py: 1600 x 900 images padded to 1600 x 928, strides
+# 8-128, 10 classes, 9 regression channels with velocity, 2 direction
+# bins, 9 attributes, 1 centerness; 2 images a card), identical card
+# against CPU; the shell's forward with a small conv backbone and head
+# within MONO3D_TOL of its scale. The ScanNet instance benchmark on the
+# instance ids of [migrate]'s generated scans against seeded perturbed
+# masks, and on the GT masks themselves (all_ap exactly 1). flops_analysis
+# at its defaults.
+OVERFIT = dict(steps=300, batch=8, scenes=16, num_points=N_POINTS, lr=4e-3,
+               seed=0, tiny=False)
+FLOPS_ARGV = ()  # flops_analysis's defaults: B=8 x 40000, the 4 + 8 step
+OVERFIT_SCORE_TOL = 1e-6
+OVERFIT_MAP_TOL = 1e-6
+DIAGNOSE = dict(n_train=16, n_val=8, num_points=2048, pretrain_epochs=1,
+                semi_epochs=1, jitter_batches=2, eval_batch=8)
+DIAGNOSE_REDUCED = (
+    "diagnose_teacher at 16 train and 8 val generated scenes (its defaults "
+    "128 + 32), MID_MODEL, 2048 points (4096), 1 pretrain and 1 semi epoch "
+    "(14 + 12); probe_thresholds on its pretrain (12 epochs of its own "
+    "otherwise); jitter_delta over 2 batches (8) at 2048 points (4096)")
+FCOS3D = dict(batch=2, pad=(928, 1600), strides=(8, 16, 32, 64, 128),
+              classes=10, reg=9, dir=2, attr=9, centerness=1, width=16,
+              seed=41)
+MONO3D_TOL = 1e-5
+INSTANCE = dict(keep=0.9, spill=0.01, dup_every=3, false_pos=3, seed=23)
 # launches a forward: FPS, ball query, three-NN. A training forward
 # samples its proposals over the votes (sample_mod_train="vote"): one FPS
 # more.
@@ -3870,6 +3920,425 @@ def voxel_phase(dev, prepared: Path) -> dict:
     return out
 
 
+def overfit_path(dev) -> dict:
+    """Path ``overfit``: ``overfit_check`` with ``OVERFIT`` (its defaults)
+    on the card, its floor checked by the tool; then the trained model's
+    head outputs decoded again on the CPU (``decode_and_nms``), every keep
+    list and box identical and every score within ``OVERFIT_SCORE_TOL``,
+    and ``indoor_eval`` of the CPU's detections within ``OVERFIT_MAP_TOL``
+    of the card's."""
+    import torch
+
+    from nesie_tpu_torch.data.scannet_meta import CLASS_NAMES
+    from nesie_tpu_torch.eval import decode_and_nms, indoor_eval
+    from nesie_tpu_torch.ops import _build
+    from nesie_tpu_torch.tools import overfit_check
+
+    o = OVERFIT
+    argv = ["--device", str(dev), "--steps", str(o["steps"]), "--batch",
+            str(o["batch"]), "--scenes", str(o["scenes"]), "--num-points",
+            str(o["num_points"]), "--lr", str(o["lr"]), "--seed",
+            str(o["seed"])] + (["--tiny"] if o["tiny"] else [])
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    # ----- the overfit path
+    res = overfit_check.run(overfit_check.parse_args(argv))
+    launches = _build.launch_counts()
+    # ----- end of the overfit path
+    path_s = time.perf_counter() - t0
+    forwards = -(-o["scenes"] // o["batch"])
+    want = per_forward(train=o["steps"], eval_small=forwards)
+    print(f"[diagnose] overfit launches: {launches} (predicted {want})")
+    check_counts(launches, "overfit", want)
+
+    ev, log = res["eval"], res["log"]
+    marks = sorted(set(range(0, o["steps"], 50)) | {o["steps"] - 1})
+    print("[diagnose] overfit loss at steps " + ", ".join(
+        f"{i}: {log['losses'][i]:.4f}" for i in marks))
+    gts, dts, worst = [], [], 0.0
+    for b in ev["batches"]:
+        raw = {k: torch.from_numpy(v) for k, v in b["raw"].items()}
+        cpu = {k: v.numpy() for k, v in decode_and_nms(
+            raw, torch.from_numpy(b["points"])).items()}
+        card = b["decoded"]
+        for k in ("selected", "bbox"):
+            if not np.array_equal(cpu[k], card[k]):
+                raise AssertionError(f"[diagnose] overfit decode: {k} "
+                                     "differs between the card and the CPU")
+        for k in ("obj_scores", "sem_scores"):
+            worst = max(worst, float(np.abs(cpu[k] - card[k]).max()))
+        gts += b["gt"]
+        dts += overfit_check.dt_annos(cpu, b["n_real"])
+    if not worst <= OVERFIT_SCORE_TOL:
+        raise AssertionError(f"[diagnose] overfit decode scores: card vs CPU "
+                             f"{worst:.3e} > {OVERFIT_SCORE_TOL}")
+    cpu_res = indoor_eval(gts, dts, class_names=list(CLASS_NAMES))
+    map_err = max(0.0 if np.isnan(v) and np.isnan(cpu_res[k])
+                  else abs(cpu_res[k] - v) for k, v in ev["results"].items())
+    if not map_err <= OVERFIT_MAP_TOL:
+        raise AssertionError(f"[diagnose] overfit indoor_eval: card vs CPU "
+                             f"{map_err:.3e} > {OVERFIT_MAP_TOL}")
+    r = ev["results"]
+    kept_boxes = sum(len(d["boxes"]) for d in dts)
+    print(f"[diagnose] overfit ({'tiny' if o['tiny'] else 'flagship'}, "
+          f"B={o['batch']} x {o['num_points']}, {o['scenes']} scenes, "
+          f"{o['steps']} steps, lr {o['lr']}): mAP_0.25 {r['mAP_0.25']:.4f}, "
+          f"mAP_0.5 {r['mAP_0.50']:.4f}, mAR_0.25 {r['mAR_0.25']:.4f}, "
+          f"mAR_0.5 {r['mAR_0.50']:.4f} (floor mAP_0.25 > "
+          f"{overfit_check.MAP_FLOOR}); {ev['kept']} proposals kept after NMS "
+          f"({kept_boxes} per-class boxes); median step "
+          f"{np.median(log['step_ms']):.3f} ms, median host batch "
+          f"{np.median(log['batch_ms']):.3f} ms; the path {path_s:.2f} s")
+    print(f"[diagnose] overfit decode on the CPU from the card's head "
+          f"outputs: keep lists and boxes identical, scores within "
+          f"{worst:.3e}, indoor_eval within {map_err:.3e}")
+    return dict(launches=launches, results=r, kept=ev["kept"],
+                kept_boxes=kept_boxes,
+                step_ms=float(np.median(log["step_ms"])),
+                batch_ms=float(np.median(log["batch_ms"])),
+                losses=[log["losses"][i] for i in marks], path_s=path_s)
+
+
+def diagnose_path(dev) -> dict:
+    """Path ``diagnose``: ``diagnose_teacher`` at ``DIAGNOSE``'s cut regime
+    (data and work dirs under ``build/diagnose_smoke/``), then
+    ``probe_thresholds`` and ``jitter_delta`` on the pretrain it leaves;
+    each tool's JSON printed, the launches against the forwards the tools
+    run."""
+    import shutil
+
+    from nesie_tpu_torch.data.dataset import read_split_file
+    from nesie_tpu_torch.ops import _build
+    from nesie_tpu_torch.tools import diagnose_teacher, jitter_delta
+    from nesie_tpu_torch.tools import probe_thresholds
+
+    d = DIAGNOSE
+    base = ROOT / "build" / "diagnose_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    common = ["--device", str(dev), "--num-points", str(d["num_points"])]
+    print(f"[diagnose] reduced: {DIAGNOSE_REDUCED}")
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    # ----- the diagnose path
+    report = diagnose_teacher.run(diagnose_teacher.parse_args(
+        ["--out", str(base), "--n-train", str(d["n_train"]), "--n-val",
+         str(d["n_val"]), "--pretrain-epochs", str(d["pretrain_epochs"]),
+         "--semi-epochs", str(d["semi_epochs"]), "--eval-every", "1"]
+        + common))
+    t_diag = time.perf_counter() - t0
+    probe = probe_thresholds.run(probe_thresholds.parse_args(
+        ["--out", str(base), "--pretrain-dir",
+         str(base / "work" / diagnose_teacher.PRETRAIN), "--split", "010",
+         "--pretrain-epochs", str(d["pretrain_epochs"]), "--pretrain-repeat",
+         "10", "--model-overrides"] + common))
+    jitter = jitter_delta.run(jitter_delta.parse_args(
+        ["--root", str(base), "--batches", str(d["jitter_batches"])]
+        + common))
+    launches = _build.launch_counts()
+    # ----- end of the diagnose path
+    path_s = time.perf_counter() - t0
+    # diagnose_teacher's configs: 10 repeats of the labeled scenes, 4 a
+    # pretrain step and 2 a semi step (teacher and student forwards)
+    labeled = len(read_split_file(base / "data" / "meta_data"
+                                  / "scannetv2_train_0.1.txt"))
+    pre_steps = max(labeled * 10 // 4, 1) * d["pretrain_epochs"]
+    semi_steps = max(labeled * 10 // 2, 1) * d["semi_epochs"]
+    evals = (2 + 2 * d["semi_epochs"] + 5) * -(-d["n_val"] // d["eval_batch"])
+    want = per_forward(
+        train=pre_steps + 2 * semi_steps + 2 * d["jitter_batches"],
+        eval_small=evals + 1)
+    print(f"[diagnose] diagnose launches: {launches} (predicted {want}: "
+          f"{pre_steps} pretrain and {semi_steps} semi steps, {evals} eval "
+          f"forwards, 1 probe and {2 * d['jitter_batches']} jitter_delta "
+          f"forwards)")
+    check_counts(launches, "diagnose", want)
+    print("[diagnose] diagnose_teacher probes: " + json.dumps(report["probes"]))
+    print("[diagnose] diagnose_teacher curve: " + json.dumps(report["curve"]))
+    print("[diagnose] probe_thresholds: " + json.dumps(probe))
+    print("[diagnose] jitter_delta: " + json.dumps(jitter))
+    print(f"[diagnose] the path {path_s:.2f} s (diagnose_teacher "
+          f"{t_diag:.2f} s)")
+    return dict(launches=launches, path_s=path_s, probes=report["probes"],
+                probe=probe, jitter=jitter)
+
+
+def mono3d_modules(seed: int):
+    """(backbone, head) for ``SingleStageMono3DDetector`` at FCOS3D's
+    output layout, seeded: every weight and bias ~ N(0, 0.05^2)."""
+    import torch
+    from torch import nn
+
+    f, w = FCOS3D, FCOS3D["width"]
+
+    class Backbone(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.stem = nn.Conv2d(3, w, 8, stride=8)
+            self.down = nn.ModuleList(nn.Conv2d(w, w, 3, stride=2, padding=1)
+                                      for _ in f["strides"][1:])
+
+        def forward(self, img):
+            x = [torch.relu(self.stem(img))]
+            for conv in self.down:
+                x.append(torch.relu(conv(x[-1])))
+            return x
+
+    class Head(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.shared = nn.Conv2d(w, w, 3, padding=1)
+            self.outs = nn.ModuleList(
+                nn.Conv2d(w, f[k], 1)
+                for k in ("classes", "reg", "dir", "attr", "centerness"))
+
+        def forward(self, feats):
+            hs = [torch.relu(self.shared(x)) for x in feats]
+            return tuple([conv(h) for h in hs] for conv in self.outs)
+
+    gen = torch.Generator().manual_seed(seed)
+    backbone, head = Backbone(), Head()
+    with torch.no_grad():
+        for p in list(backbone.parameters()) + list(head.parameters()):
+            p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+    return backbone, head
+
+
+def _mono3d_tta(det, img):
+    """The reference's flip test-time augmentation on the shell: the
+    image and its mirror, the mirror's outputs flipped back, merged."""
+    import torch
+
+    from nesie_tpu_torch.nn.mono3d import (
+        flip_mono3d_outputs,
+        merge_aug_mono3d_outputs,
+    )
+
+    outs = det(img)
+    flipped = det(torch.flip(img, dims=(3,)))
+    cls, reg, extra = flip_mono3d_outputs(flipped[0], flipped[1],
+                                          list(flipped[2:]), pred_velo=True)
+    return merge_aug_mono3d_outputs([outs, (cls, reg, *extra)])
+
+
+def _held_maps(name, got, want, tol=None) -> float:
+    """Card maps against CPU maps: identical, or with ``tol`` within it
+    times the CPU's largest magnitude (at least 1); the error over that
+    scale."""
+    worst = 0.0
+    for gi, wi in zip(got, want):
+        for g, w in zip(gi, wi):
+            g = g.detach().cpu()
+            w = w.detach()
+            if g.shape != w.shape:
+                raise AssertionError(f"[diagnose] {name}: shapes {g.shape} "
+                                     f"and {w.shape}")
+            if tol is None:
+                if not bool((g == w).all()):
+                    raise AssertionError(f"[diagnose] {name}: card and CPU "
+                                         "differ")
+                continue
+            scale = max(1.0, float(w.abs().max()))
+            worst = max(worst, float((g - w).abs().max()) / scale)
+    if tol is not None and not worst <= tol:
+        raise AssertionError(f"[diagnose] {name}: card vs CPU {worst:.3e} > "
+                             f"{tol}")
+    return worst
+
+
+def mono3d_path(dev) -> dict:
+    """Path ``mono3d`` (no kernel of the port): the flip and merge of
+    dense maps at FCOS3D's shapes, identical card against CPU, with their
+    times; the shell's forward and flip TTA with ``mono3d_modules``, card
+    against CPU within ``MONO3D_TOL``."""
+    import copy as cp
+
+    import torch
+
+    from nesie_tpu_torch.nn.mono3d import (
+        SingleStageMono3DDetector,
+        flip_mono3d_outputs,
+        merge_aug_mono3d_outputs,
+    )
+
+    f = FCOS3D
+    b, (h, w) = f["batch"], f["pad"]
+    sizes = [(-(-h // s), -(-w // s)) for s in f["strides"]]
+    gen = torch.Generator().manual_seed(f["seed"])
+
+    def view():
+        def maps(c, uniform=False):
+            draw = torch.rand if uniform else torch.randn
+            return [draw((b, c) + hw, generator=gen) for hw in sizes]
+        return (maps(f["classes"]), maps(f["reg"], uniform=True),
+                maps(f["dir"]), maps(f["attr"]), maps(f["centerness"]))
+
+    views = [view(), view()]
+
+    def flip_merge(vs):
+        cls, reg, extra = flip_mono3d_outputs(vs[1][0], vs[1][1],
+                                              list(vs[1][2:]), pred_velo=True)
+        return merge_aug_mono3d_outputs([vs[0], (cls, reg, *extra)])
+
+    card_views = [tuple([m.to(dev) for m in g] for g in v) for v in views]
+    merged_cpu = flip_merge(views)
+    merged_card = flip_merge(card_views)
+    _held_maps("mono3d flip + merge", merged_card, merged_cpu)
+    card_ms = median_ms(lambda _: flip_merge(card_views), 5)
+    t0 = time.perf_counter()
+    flip_merge(views)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    n_vals = sum(m.numel() for g in views[0] for m in g)
+
+    backbone, head = mono3d_modules(f["seed"] + 1)
+    det_cpu = SingleStageMono3DDetector(backbone=backbone, bbox_head=head)
+    det = cp.deepcopy(det_cpu).to(dev).eval()
+    det_cpu.eval()
+    img = torch.randn((b, 3, h, w), generator=gen)
+    img_card = img.to(dev)
+    with torch.no_grad():
+        fwd_err = _held_maps("mono3d shell forward", det(img_card),
+                             det_cpu(img), MONO3D_TOL)
+        tta_err = _held_maps("mono3d shell flip TTA",
+                             _mono3d_tta(det, img_card),
+                             _mono3d_tta(det_cpu, img), MONO3D_TOL)
+        fwd_ms = median_ms(lambda _: det(img_card), 5)
+        tta_ms = median_ms(lambda _: _mono3d_tta(det, img_card), 5)
+    print(f"[diagnose] mono3d: FCOS3D nuScenes maps ({b} x {h} x {w}, "
+          f"strides {f['strides']}: {sizes}; {n_vals} values a view): flip + "
+          f"merge of 2 views identical on the card, {card_ms:.4f} ms (CPU "
+          f"{cpu_ms:.1f} ms, host clock); the shell (width {f['width']}) "
+          f"forward within {fwd_err:.2e}, flip TTA within {tta_err:.2e} of "
+          f"the CPU's scale; forward {fwd_ms:.4f} ms, TTA {tta_ms:.4f} ms")
+    return dict(flip_merge_ms=card_ms, forward_ms=fwd_ms, tta_ms=tta_ms,
+                fwd_err=fwd_err, tta_err=tta_err)
+
+
+def instance_benchmark() -> dict:
+    """``scannet_instance_benchmark`` on the instance ids of [migrate]'s
+    generated ScanNet scans (``_instance_ids``: a box surface's points its
+    instance, the floor unannotated; nyu40 id x 1000 + instance), against
+    masks perturbed from ``INSTANCE``'s seed (each instance's points kept
+    with probability ``keep``, ``spill`` of the scan's points added, every
+    ``dup_every``-th instance predicted twice, ``false_pos`` random masks a
+    scan), and on the GT masks themselves, whose all_ap must be 1."""
+    from nesie_tpu_torch.data.scannet_meta import VALID_CAT_IDS
+    from nesie_tpu_torch.data.synthetic import make_synthetic_scenes
+    from nesie_tpu_torch.eval.instance_seg import scannet_instance_benchmark
+
+    m, c = MIGRATE, INSTANCE
+    rooms = make_synthetic_scenes(m["scenes"], seed=m["seed"],
+                                  floor_points=m["floor_points"],
+                                  points_per_object=m["points_per_object"])
+    rng = np.random.default_rng(c["seed"])
+    nyu = np.asarray(VALID_CAT_IDS)
+    gts, preds, perfect = [], [], []
+    for room in rooms:
+        seg = _instance_ids(room.points[:, :3].astype(np.float64), room.boxes)
+        cls = np.concatenate([[0], nyu[room.labels.astype(int)]])[seg]
+        gt = np.where(seg > 0, cls * 1000 + seg, 0)
+        n = len(gt)
+        masks, labels, confs = [], [], []
+        inst = [j for j in range(1, seg.max() + 1) if (seg == j).any()]
+        for j in inst:
+            for _ in range(2 if j % c["dup_every"] == 0 else 1):
+                masks.append(((seg == j) & (rng.uniform(size=n) < c["keep"]))
+                             | (rng.uniform(size=n) < c["spill"]))
+                labels.append(int(cls[seg == j][0]))
+                confs.append(float(rng.uniform()))
+        for _ in range(c["false_pos"]):
+            masks.append(rng.uniform(size=n) < 0.02)
+            labels.append(int(rng.choice(nyu)))
+            confs.append(float(rng.uniform()))
+        gts.append(gt)
+        preds.append(dict(mask=np.stack(masks), label_id=np.array(labels),
+                          conf=np.array(confs)))
+        perfect.append(dict(mask=np.stack([seg == j for j in inst]),
+                            label_id=np.array([cls[seg == j][0] for j in inst]),
+                            conf=np.linspace(1.0, 0.5, len(inst))))
+    t0 = time.perf_counter()
+    res = scannet_instance_benchmark(gts, preds)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    oracle = scannet_instance_benchmark(gts, perfect)
+    if oracle["all_ap"] != 1.0 or oracle["all_ap_25%"] != 1.0:
+        raise AssertionError(f"[diagnose] instance benchmark on the GT masks: "
+                             f"all_ap {oracle['all_ap']}, not 1")
+    for k in ("all_ap", "all_ap_50%", "all_ap_25%"):
+        if not 0.0 < res[k] <= 1.0:
+            raise AssertionError(f"[diagnose] instance benchmark: {k} "
+                                 f"{res[k]}")
+    n_pred = sum(len(p["conf"]) for p in preds)
+    print(f"[diagnose] scannet_instance_benchmark: {len(gts)} scans of "
+          f"{min(map(len, gts))}-{max(map(len, gts))} vertices, {n_pred} "
+          f"predicted masks: all_ap {res['all_ap']:.4f}, ap50 "
+          f"{res['all_ap_50%']:.4f}, ap25 {res['all_ap_25%']:.4f}, host "
+          f"{host_ms:.1f} ms; on the GT masks all_ap 1")
+    return dict(host_ms=host_ms, all_ap=res["all_ap"],
+                ap50=res["all_ap_50%"], ap25=res["all_ap_25%"])
+
+
+def flops_path(dev) -> dict:
+    """Path ``flops``: ``flops_analysis`` with ``FLOPS_ARGV`` (its
+    defaults: the B=8 x 40000 eval forward, the 4 + 8 semi step), its
+    point-kernel launches against the counts."""
+    from nesie_tpu_torch.ops import _build
+    from nesie_tpu_torch.tools import flops_analysis
+
+    _build.reset_launch_counts()
+    # ----- the flops path
+    out = flops_analysis.run(flops_analysis.parse_args(
+        ["--device", str(dev), *FLOPS_ARGV]))
+    launches = _build.launch_counts()
+    # ----- end of the flops path
+    want = per_forward(train=2, eval_small=1)  # semi: teacher + student
+    check_counts(launches, "flops", want)
+    seen = {k: sum(v["point_ops"][k]["launches"] for v in out.values())
+            for k in ("fps", "ball_query", "three_nn")}
+    if seen != {"fps": want["fps_onchip_small"],
+                "ball_query": want["ball_query"],
+                "three_nn": want["three_nn"]}:
+        raise AssertionError(f"[diagnose] flops_analysis counted {seen} "
+                             f"point-kernel calls, the card {launches}")
+    print("[diagnose] flops: " + ", ".join(
+        f"{k} {v['flops']:.6e} FLOPs" for k, v in out.items()))
+    return dict(launches=launches,
+                flops={k: v["flops"] for k, v in out.items()},
+                point_ops={k: v["point_ops"] for k, v in out.items()})
+
+
+def diagnose_phase(dev) -> dict:
+    """[diagnose]: paths ``overfit``, ``diagnose``, ``mono3d`` (with the
+    instance benchmark; neither launches a kernel of the port) and
+    ``flops``, counts set to 0 before and read after each. Returns the
+    launches and the numbers printed."""
+    import torch
+
+    from nesie_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    launches = {}
+    overfit = overfit_path(dev)
+    launches["overfit"] = overfit.pop("launches")
+    torch.cuda.empty_cache()
+    diag = diagnose_path(dev)
+    launches["diagnose"] = diag.pop("launches")
+    _build.reset_launch_counts()
+    # ----- the mono3d path (and the instance benchmark, on the host)
+    mono = mono3d_path(dev)
+    inst = instance_benchmark()
+    launches["mono3d"] = _build.launch_counts()
+    # ----- end of the mono3d path
+    check_counts(launches["mono3d"], "mono3d",
+                 dict.fromkeys(per_forward(), 0))
+    torch.cuda.empty_cache()
+    flops = flops_path(dev)
+    launches["flops"] = flops.pop("launches")
+    out = dict(launches=launches, overfit=overfit, diagnose=diag,
+               mono3d=mono, instance=inst, flops=flops,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[diagnose] phase: {out['phase_s']:.2f} s")
+    return out
+
+
 def make_scene_points(i: int, n: int):
     """Room ``i`` of the SUN RGB-D forward's batch, ``n`` points."""
     from nesie_tpu_torch.data.synthetic import make_scene
@@ -4226,6 +4695,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     voxel = voxel_phase(dev, ROOT / "build" / "migrate_smoke" / "scannet")
     launches.update(voxel["launches"])
+
+    # ---- 14. the last modules: overfit, diagnostics, mono3d, FLOPs ------
+    torch.cuda.empty_cache()
+    diagnose = diagnose_phase(dev)
+    launches.update(diagnose["launches"])
 
     sources = {
         "fps_onchip": ("nesie_tpu_torch/csrc/fps_onchip.cu",

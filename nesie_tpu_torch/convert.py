@@ -5,10 +5,11 @@ checkpoints.
 (nested dicts of numpy arrays; Nesie or SAQE head), a PointNet2SASSG +
 VoteHead detector's or a PointNet2Segmentor's, or a params-shaped tree
 alone, onto the port's ``state_dict``; ``module_state_dict_from_flax``
-one SA module's (plain, MSG, PAConv), conv head's, sparse convolution's
-or SparseBasicBlock's. The port's
-names are the reference's, so ``nesie_tpu.convert_torch.convert_state_dict``
-maps the port's ``state_dict()`` back: the two are inverses.
+one SA module's (plain, MSG, PAConv), ``MLP``'s, conv head's, sparse
+convolution's, SparseBasicBlock's or image-conv tree's (the mono3d
+shell). The port's names are the reference's, so
+``nesie_tpu.convert_torch.convert_state_dict`` maps the port's
+``state_dict()`` back: the two are inverses.
 
 The mapping follows the tree, so it carries any output width (a quality
 module with ``iou_class_depend=False``), and a model with
@@ -158,6 +159,31 @@ def _sparse_block(sd, prefix, params, stats):
         _linear(sd, f"{prefix}.down", params["down"])
 
 
+def _is_conv2d(params) -> bool:
+    """Whether the tree holds a flax ``Conv`` over images (a 4-D
+    kernel)."""
+    if not isinstance(params, dict):
+        return False
+    if np.ndim(params.get("kernel")) == 4:
+        return True
+    return any(_is_conv2d(v) for v in params.values())
+
+
+def _conv_tree(sd, prefix, params):
+    """A tree of flax ``Conv`` (HWIO kernel -> ``nn.Conv2d``'s OIHW
+    weight) and ``Dense`` layers, named by the tree's keys joined by
+    dots: the mono3d shell with its injected modules."""
+    if "kernel" in params:
+        kernel = np.asarray(params["kernel"], np.float32)
+        sd[f"{prefix}.weight"] = (kernel.transpose(3, 2, 0, 1)
+                                  if kernel.ndim == 4 else kernel.T)
+        if "bias" in params:
+            sd[f"{prefix}.bias"] = np.asarray(params["bias"], np.float32)
+        return
+    for k, v in params.items():
+        _conv_tree(sd, f"{prefix}.{k}", v)
+
+
 def _tensors(sd: dict) -> dict:
     return {k: torch.tensor(v) for k, v in sd.items()}
 
@@ -165,11 +191,19 @@ def _tensors(sd: dict) -> dict:
 def module_state_dict_from_flax(params: dict,
                                 batch_stats: dict | None = None) -> dict:
     """One module's flax variables -> the port module's state_dict: a
-    PointSAModule, PointSAModuleMSG or PAConvSAModule, a
-    BaseConvBboxHead or ReliableConvBboxHead, a SubMConv3d or SparseConv3d,
-    or a SparseBasicBlock (told apart by their keys)."""
+    PointSAModule, PointSAModuleMSG or PAConvSAModule, an ``MLP`` (``mlp``
+    whose layers have biases; a PointSAModule's have none), a
+    BaseConvBboxHead or ReliableConvBboxHead, a SubMConv3d or
+    SparseConv3d, a SparseBasicBlock, or a tree of image ``Conv`` and
+    ``Dense`` layers such as the mono3d shell (told apart by their
+    keys)."""
     sd: dict = {}
-    if "shared" in params or "conv_cls" in params:
+    mlp = params.get("mlp")
+    if _is_conv2d(params):
+        _conv_tree(sd, "x", params)
+    elif isinstance(mlp, dict) and "bias" in mlp.get("dense0", {}):
+        _point_mlp(sd, "x.mlp", mlp, _sub(batch_stats, "mlp"))
+    elif "shared" in params or "conv_cls" in params:
         _conv_head(sd, "x", params, batch_stats)
     elif "conv1" in params and "bn1" in params:
         _sparse_block(sd, "x", params, batch_stats)

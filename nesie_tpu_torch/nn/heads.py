@@ -1,5 +1,6 @@
 """Prediction head layers: the integral side decode (and its ``Integral``
-module), SAQE's angle decode, the base and the reliable conv heads.
+module), SAQE's angle decode (and its ``AngleIntegral`` module), the base
+and the reliable conv heads.
 Counterpart of ``nesie_tpu/nn/heads.py``."""
 from __future__ import annotations
 
@@ -37,6 +38,14 @@ def angle_integral_expectation(logits: torch.Tensor) -> torch.Tensor:
     (...)."""
     ang = integral_expectation(logits, logits.shape[-1] - 1) * 2 * torch.pi
     return torch.where(ang > torch.pi, ang - 2 * torch.pi, ang)
+
+
+class AngleIntegral(nn.Module):
+    """``angle_integral_expectation`` as a module without parameters (the
+    reference's AngleIntegral, saqe_head.py:54-87)."""
+
+    def forward(self, logits: torch.Tensor) -> torch.Tensor:
+        return angle_integral_expectation(logits)
 
 
 def _branch(cin: int, channels: Sequence[int], bias: bool, **norm):

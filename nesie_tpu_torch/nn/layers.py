@@ -191,6 +191,23 @@ class PointMLP(nn.Sequential):
         return out if self.dtype is None else out.float()
 
 
+class MLP(nn.Module):
+    """Per-point feature MLP (reference mmdet3d/models/utils/mlp.py:1-50;
+    the JAX package's ``MLP``): Linear (the reference's 1x1 Conv1d) + BN +
+    ReLU a layer, with a bias on every Linear (the reference sets
+    ``bias=True`` explicitly, unlike ConvModule's ``'auto'``), over
+    channels-last (B, N, C) input. Its layers are the reference's
+    ``mlp.layer{j}.conv`` / ``.bn``."""
+
+    def __init__(self, in_channel: int = 18,
+                 conv_channels: Sequence[int] = (256, 256)):
+        super().__init__()
+        self.mlp = PointMLP(in_channel, conv_channels, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp(x)
+
+
 class MiniPointNet(nn.Module):
     """PointNet over grouped grid points with a global-max skip (reference
     side_pooling_module.py:343): (B, K, N, C) -> (B, K, feature_dim)."""

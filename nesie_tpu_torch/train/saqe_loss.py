@@ -35,7 +35,7 @@ from nesie_tpu_torch.losses import (
 from .sup_loss import (
     NesieLossConfig,
     _at_class,
-    center_loss,
+    center_loss_fn,
     sigma_poly,
     vote_loss_fn,
 )
@@ -72,7 +72,7 @@ def saqe_supervised_loss(results, targets: HeadTargets,
     losses["objectness_loss"] = obj_ce(results["obj_scores"]) + 0.5 * (
         obj_ce(results["R_obj_scores"])
         + obj_ce(results["R_obj_scores_jitter"]))
-    losses["center_loss"] = center_loss(results, targets, cfg)
+    losses["center_loss"] = center_loss_fn(results, targets, cfg)
 
     bbox_targets = targets.bbox_targets.reshape(flat, -1)
     surface_pred = results["surface_pred"].reshape(flat, 6)
@@ -166,7 +166,7 @@ def saqe_unsup_loss(results, targets: HeadTargets, pseudo_quality,
         1, targets.assignment.long()[..., None].expand(-1, -1, 6))
     quality_mean = quality_side.mean(-1)
 
-    losses = {"unsup_center_loss": center_loss(results, targets, cfg)}
+    losses = {"unsup_center_loss": center_loss_fn(results, targets, cfg)}
     sem_ce = softmax_cross_entropy(results["sem_scores"], targets.mask_targets)
     losses["unsup_semantic_loss"] = cfg.semantic_weight * (
         sem_ce * targets.box_loss_weights).sum()

@@ -63,7 +63,7 @@ def vote_loss_fn(results, targets: HeadTargets, cfg: NesieLossConfig):
     return dist.amin(-1).sum()
 
 
-def center_loss(results, targets: HeadTargets, cfg: NesieLossConfig):
+def center_loss_fn(results, targets: HeadTargets, cfg: NesieLossConfig):
     """Bidirectional L2 chamfer between proposal centers and the padded GT
     centers (the padded zeros take part in the proposal->GT min)."""
     src = results["bbox_preds"][..., :3]
@@ -91,7 +91,7 @@ def nesie_supervised_loss(results, targets: HeadTargets,
                                    class_weight=cfg.objectness_class_weight)
     losses["objectness_loss"] = cfg.objectness_weight * (
         obj_ce * targets.objectness_weights).sum()
-    losses["center_loss"] = center_loss(results, targets, cfg)
+    losses["center_loss"] = center_loss_fn(results, targets, cfg)
 
     # surface loss with sigma attenuation
     bbox_targets = targets.bbox_targets.reshape(flat, -1)

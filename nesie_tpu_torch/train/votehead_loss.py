@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import torch
 
 from nesie_tpu_torch.losses import smooth_l1_loss, softmax_cross_entropy
-from .sup_loss import NesieLossConfig, center_loss, vote_loss_fn
+from .sup_loss import NesieLossConfig, center_loss_fn, vote_loss_fn
 from .targets import HeadTargets
 
 
@@ -42,8 +42,8 @@ def votehead_supervised_loss(preds, targets: HeadTargets, mean_sizes,
     losses["objectness_loss"] = cfg.objectness_weight * (
         obj_ce * targets.objectness_weights).sum()
     decoded_center = preds["aggregated_points"] + preds["center_offset"]
-    losses["center_loss"] = center_loss({"bbox_preds": decoded_center},
-                                        targets, cfg)
+    losses["center_loss"] = center_loss_fn(
+        {"bbox_preds": decoded_center}, targets, cfg)
 
     zero = w.new_zeros(())
     gt_yaw = torch.remainder(targets.bbox_targets[..., 6], 2 * torch.pi)

@@ -1,13 +1,15 @@
 """Runtime utilities: logging, metrics, environment fingerprint (reference
 mmdet3d/utils/logger.py, collect_env.py + the runner's log_buffer /
-TextLoggerHook). Counterpart of ``nesie_tpu/utils.py``; the metrics go to
-``metrics.jsonl`` only (no TensorBoard writer).
+TextLoggerHook) and a profiler trace. Counterpart of
+``nesie_tpu/utils.py``; the metrics go to ``metrics.jsonl`` only (no
+TensorBoard writer).
 """
 from __future__ import annotations
 
 import json
 import logging
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 LOGGER_NAME = "nesie_tpu_torch"
@@ -27,6 +29,22 @@ def get_root_logger(log_file=None, level=logging.INFO):
         fh.setFormatter(fmt)
         logger.addHandler(fh)
     return logger
+
+
+def no_card(device, tool: str) -> bool:
+    """True, after saying so on stderr, when ``device`` is a CUDA device
+    and this process has none: an entry point then returns 1 rather than
+    carry on on the CPU, which it does only when asked (``--device
+    cpu``)."""
+    import sys
+
+    import torch
+
+    if torch.device(device).type != "cuda" or torch.cuda.is_available():
+        return False
+    print(f"{tool}: no CUDA device (--device cpu runs on the CPU)",
+          file=sys.stderr)
+    return True
 
 
 def collect_env():
@@ -80,3 +98,38 @@ class MetricsLogger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+@contextmanager
+def trace(name: str, log_dir=None):
+    """Log the block's wall time as ``"<name> took <s>s"``; with
+    ``log_dir``, also run it under ``torch.profiler`` (the CPU, and the
+    card when there is one) and write the Chrome trace to
+    ``<log_dir>/<name>.trace.json``. Yields the profiler, or None.
+
+        with trace("train", "build/prof"):
+            step(...)
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = None
+    if log_dir is not None:
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+    t0 = time.perf_counter()
+    try:
+        if prof is None:
+            yield None
+        else:
+            with prof:
+                yield prof
+    finally:
+        logging.getLogger(LOGGER_NAME).info(
+            "%s took %.3fs", name, time.perf_counter() - t0)
+    if prof is not None:
+        out = Path(log_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / f"{name}.trace.json"))

@@ -699,3 +699,56 @@ def test_voxel_stack_on_card(cuda):
         assert torch.allclose(g_gpu, g_cpu, atol=1e-5, rtol=0)
     torch.cuda.synchronize()
     assert not any(_build.launch_counts().values())
+
+
+@pytest.mark.gpu
+def test_mono3d_and_overfit_decode_on_card(cuda):
+    """``flip_mono3d_outputs`` + ``merge_aug_mono3d_outputs`` identical on
+    the card and the CPU; a tiny ``overfit_check`` run (20 steps) on the
+    card, its head outputs decoded again on the CPU: keep lists and boxes
+    identical, scores within 1e-6 (``chip_smoke.OVERFIT_SCORE_TOL``)."""
+    from nesie_tpu_torch.eval import decode_and_nms
+    from nesie_tpu_torch.nn.detector import init_weights_flax_
+    from nesie_tpu_torch.nn.mono3d import (
+        flip_mono3d_outputs,
+        merge_aug_mono3d_outputs,
+    )
+    from nesie_tpu_torch.tools import overfit_check
+    from nesie_tpu_torch.train.state import create_train_state, make_lr_schedule
+    from nesie_tpu_torch.train.step import make_supervised_train_step
+
+    gen = torch.Generator().manual_seed(0)
+    views = [([torch.randn(2, 10, 24, 40, generator=gen)],
+              [torch.rand(2, 9, 24, 40, generator=gen)],
+              [torch.randn(2, 2, 24, 40, generator=gen)],
+              [torch.randn(2, 1, 24, 40, generator=gen)]) for _ in range(2)]
+
+    def tta(vs):
+        cls, reg, extra = flip_mono3d_outputs(vs[1][0], vs[1][1],
+                                              list(vs[1][2:]), pred_velo=True)
+        return merge_aug_mono3d_outputs([vs[0], (cls, reg, *extra)])
+
+    want = tta(views)
+    got = tta([tuple([m.to(cuda) for m in g] for g in v) for v in views])
+    for g, w in zip(got, want):
+        assert torch.equal(g[0].cpu(), w[0])
+
+    model = overfit_check.build_model(tiny=True)
+    init_weights_flax_(model, torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_lr_schedule(4e-3, 20), device=cuda)
+    ds = overfit_check.make_dataset(4, 0)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(cuda).manual_seed(0)
+    overfit_check.train_steps(state, make_supervised_train_step(), ds, rng,
+                              20, 4, overfit_check.TINY_POINTS, cuda, gen)
+    ev = overfit_check.evaluate_scenes(state, ds, rng, 4,
+                                       overfit_check.TINY_POINTS, cuda, gen)
+    assert ev["kept"] > 0
+    for b in ev["batches"]:
+        cpu = decode_and_nms({k: torch.from_numpy(v)
+                              for k, v in b["raw"].items()},
+                             torch.from_numpy(b["points"]))
+        for k in ("selected", "bbox"):
+            assert np.array_equal(cpu[k].numpy(), b["decoded"][k]), k
+        for k in ("obj_scores", "sem_scores"):
+            assert np.abs(cpu[k].numpy() - b["decoded"][k]).max() <= 1e-6, k
