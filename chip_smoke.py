@@ -20,19 +20,24 @@ file; fails without them. In order:
    and training steps, each beside ``fps_cluster.cu`` and the barrier
    exchange), all held to ``fps_ref`` and to each other. ``fps_cluster.cu``
    (one cluster per row) and ``fps.cu`` (one block per row: the lab's
-   ``v0`` baseline) are second references, off the eval and training
-   paths; the ball query at the eval forward's five shapes (SA1-SA4, the
-   aggregation) at B=32 and at SA1 for B=12; three-NN at the side grid,
+   ``v0`` beside ``v0_current``, the shipped FPS) are second references,
+   off the eval and training paths; the ball query at the eval forward's
+   five shapes (SA1-SA4, the aggregation) at B=32 and at SA1 for B=12;
+   three-NN at the side grid,
    the box grid and the two FP shapes, each beside ``torch.topk`` of
    ``torch.cdist``;
    [fps-lab], counts set to 0 before and read after (path ``lab``): the
    FPS lab's two entry points run all eight step variants of
-   ``csrc/fps_variants.cu`` (the TPU lab's K5 and K6) on the tie-heavy
-   and random check clouds (B=3, N=600, M=37; odd B for the two-row
-   ``v3``), at K5's bench shape (8 x 40000 -> 2048, uniform) and at K6's
-   default (32 x 40000 -> 2048, normal x 3), each beside ``fps.cu`` and
-   ``fps_cluster.cu``; every variant must give ``fps_ref``'s indices.
-   Then each variant against its plain version, with both times;
+   ``csrc/fps_variants.cu`` (the TPU lab's K5 and K6, on the shipped
+   FPS's on-chip frame and plan) on the tie-heavy and random check clouds
+   (B=3, N=600, M=37; odd B for the two-row ``v3``), on the tie-heavy
+   cloud at K5's bench shape (40 distinct points tiled to 8 x 40000 ->
+   2048: ties across a cluster's CTAs), at K5's bench shape (uniform) and
+   at K6's default (32 x 40000 -> 2048, normal x 3), each beside the
+   shipped ``fps_onchip.cu``, ``fps.cu`` and (K6) ``fps_cluster.cu``;
+   every variant must give ``fps_ref``'s indices and (K6) the shipped
+   FPS's. Then each variant against its plain version, with both times,
+   its plan and its ms a step;
 4. eval path: the flagship VoteNetNesie (seeded random weights, BN
    running stats randomised) runs the batched eval forward at
    B=32 x 40000 x 4 and serves three ``Detector`` requests (B=1), with
@@ -548,7 +553,9 @@ def fps_lab_phase():
         LAB_VARIANTS,
         VARIANTS,
         fps_variant_cuda,
+        fps_variant_plan,
         fps_variant_ref,
+        plan_tag,
     )
     from nesie_tpu_torch.tools import fps_experiments, fps_lab
 
@@ -559,6 +566,11 @@ def fps_lab_phase():
     if fps_lab.check("cuda", VARIANTS) != 0:
         raise AssertionError("[fps-lab] a variant differs from fps_ref on "
                              "the check clouds")
+    # a tie that spans the CTAs of a cluster: 40 distinct points tiled
+    if fps_lab.check("cuda", VARIANTS, shape=fps_lab.BENCH_SHAPE,
+                     clouds=("dup",)) != 0:
+        raise AssertionError("[fps-lab] a variant differs from fps_ref on "
+                             "the tie-heavy cloud at the bench shape")
     k5 = {r["variant"]: r for r in fps_lab.bench(VARIANTS, reps=LAB_REPS)}
     b5, n5, m5 = fps_lab.BENCH_SHAPE
     k6_batch = 32  # fps_experiments' default; K5 and K6 share N and M
@@ -568,9 +580,11 @@ def fps_lab_phase():
     per_variant = fps_variants.launch_counts()
     # ----- end of the lab path
     bad = [f"K5 {k}" for k, r in k5.items() if not r["exact"]] + [
-        f"K6 {k}" for k, r in k6.items() if not r["exact_vs_xla"]]
+        f"K6 {k}" for k, r in k6.items()
+        if not (r["exact_vs_xla"] and r["exact_vs_v0"])]
     if bad:
-        raise AssertionError(f"[fps-lab] indices differ from fps_ref: {bad}")
+        raise AssertionError(f"[fps-lab] indices differ from fps_ref or the "
+                             f"shipped FPS: {bad}")
     print(f"[fps-lab] launches during the lab path: {launches}; by variant "
           f"{per_variant}")
     for name, n in {**per_variant, "fps": launches["fps"],
@@ -581,11 +595,13 @@ def fps_lab_phase():
     clouds = {"K5": (fps_lab.bench_cloud("cuda"), m5),
               "K6": (fps_experiments.make_cloud(k6_batch, n5, "cuda"), m5)}
     k5_tag, k6_tag = f"{b5}x{n5}->{m5}", f"{k6_batch}x{n5}->{m5}"
+    v0_ms = {k5_tag: k5["v0_current"]["ms"], k6_tag: k6["v0"]["ms"]}
     print(f"[fps-lab] ms by variant: {k5_tag} (mean of {LAB_REPS}, beside "
-          f"fps.cu {k5['v0']['ms']:.4f} and the dispatch's fps_cluster.cu "
-          f"{k5['v0_current']['ms']:.4f}) | {k6_tag} (least of "
-          f"{LAB_REPS}, beside fps.cu {k6['v0']['ms']:.4f} and "
-          f"fps_cluster.cu {k6['fps_cluster']['ms']:.4f})")
+          f"the shipped fps_onchip.cu {v0_ms[k5_tag]:.4f} and fps.cu "
+          f"{k5['v0']['ms']:.4f}) | {k6_tag} (least of {LAB_REPS}, beside "
+          f"the shipped fps_onchip.cu {v0_ms[k6_tag]:.4f}, fps.cu "
+          f"{k6['fps_cu']['ms']:.4f} and fps_cluster.cu "
+          f"{k6['fps_cluster']['ms']:.4f})")
     entries = []
     for name, v in VARIANTS.items():
         which = "K5" if name in LAB_VARIANTS else "K6"
@@ -599,17 +615,26 @@ def fps_lab_phase():
         plain_ms = time_ms(lambda: fps_variant_ref(x, m, name), 1)
         b_ms, b_by = fps_bound(x.shape[0], x.shape[1], m)
         by_shape = {k5_tag: k5[name]["ms"], k6_tag: k6[name]["ms"]}
+        plans = {k5_tag: plan_tag(fps_variant_plan(name, b5, n5)),
+                 k6_tag: plan_tag(fps_variant_plan(name, k6_batch, n5))}
+        tag = k5_tag if which == "K5" else k6_tag
         print(f"[fps-lab] {name:12s} ({v.select}, {v.fetch}, rows {v.rows}, "
-              f"unroll {v.unroll}): {by_shape[k5_tag]:.4f} | "
-              f"{by_shape[k6_tag]:.4f} ms; plain {plain_ms:.4f} ms at "
-              f"{which}'s shape, bound {b_ms:.4f} ms")
+              f"unroll {v.unroll}): {by_shape[k5_tag]:.4f} ms "
+              f"[{plans[k5_tag]}] x{by_shape[k5_tag] / v0_ms[k5_tag]:.3f} | "
+              f"{by_shape[k6_tag]:.4f} ms [{plans[k6_tag]}] "
+              f"x{by_shape[k6_tag] / v0_ms[k6_tag]:.3f} of the shipped FPS; "
+              f"plain {plain_ms:.4f} ms at {which}'s shape, bound "
+              f"{b_ms:.4f} ms")
         entries.append(dict(
             name=f"fps_variant:{name}", route="cuda",
             source="nesie_tpu_torch/csrc/fps_variants.cu",
             replaces=v.replaces, launches=per_variant[name],
-            max_abs_err=err, ms=by_shape[k5_tag if which == "K5" else k6_tag],
-            ms_by_shape=by_shape, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None))
+            max_abs_err=err, ms=by_shape[tag], ms_per_step=by_shape[tag] / (
+                m - 1), plan=plans[tag], ms_by_shape=by_shape,
+            plan_by_shape=plans,
+            vs_shipped_by_shape={k: by_shape[k] / v0_ms[k] for k in v0_ms},
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
     print(f"[fps-lab] phase {time.perf_counter() - t0:.2f} s")
     return launches, entries
 

@@ -111,6 +111,7 @@
 
 #include <algorithm>
 
+#include "fps_frame.cuh"
 #include "fps_key.cuh"
 #include "sq_dist.cuh"
 
@@ -118,7 +119,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxCluster = 16;
 constexpr int kMinPointsPerCta = 2048;
 // the thread caps the plan tries unless asked for one, by exchange:
@@ -128,14 +128,6 @@ constexpr int kMinPointsPerCta = 2048;
 constexpr int kLocalThreads[] = {32, 64, 128, 256};
 constexpr int kMailboxThreads[] = {128, 256};
 constexpr int kBarrierThreads[] = {256};
-
-enum Exchange : int {
-  kAuto = 0,
-  kLocal = 1,
-  kBarrier = 2,
-  kMailbox = 3,     // every warp pushes
-  kMailboxCta = 4,  // one push per CTA
-};
 
 // The cost model, in ns a step, fitted to fps_onchip_sweep and
 // fps_step_split on the H100 (1.98 GHz): a point an SM holds, a point a
@@ -158,72 +150,10 @@ constexpr int kCandBytes = 20;
 constexpr int kStamps = 6;
 constexpr int kTimedSteps = 512;
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 __device__ __forceinline__ long long clock_now() {
   long long t;
   asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(t)::"memory");
   return t;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// this CTA's shared address a in the shared memory of CTA rank
-__device__ __forceinline__ unsigned peer(unsigned a, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(a), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arm(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// (value, index, x, y) to a peer's head slot and z to its tail slot, each
-// completing its bytes on the peer's barrier
-__device__ __forceinline__ void push_async(unsigned head, unsigned tail,
-                                           unsigned bar, uint4 h, float z) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
-      "{%1, %2, %3, %4}, [%5];\n" ::"r"(head),
-      "r"(h.x), "r"(h.y), "r"(h.z), "r"(h.w), "r"(bar)
-      : "memory");
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];\n" ::"r"(tail),
-      "r"(__float_as_uint(z)), "r"(bar)
-      : "memory");
 }
 
 // The largest key of the warp, in every lane (xor butterfly).
@@ -234,59 +164,6 @@ __device__ __forceinline__ unsigned long long max_all(unsigned long long k) {
     k = o > k ? o : k;
   }
   return k;
-}
-
-// A mailbox candidate: value (distance bits + 1, 0 for none), index and
-// coordinates.
-struct Best {
-  unsigned v;
-  unsigned i;
-  float x, y, z;
-  __device__ uint4 head() const {
-    return make_uint4(v, i, __float_as_uint(x), __float_as_uint(y));
-  }
-};
-
-// The warp's best candidate, in every lane: the lowest lane of the
-// largest value (lanes are in index order).
-__device__ __forceinline__ Best warp_best(const Best& c) {
-  const unsigned top = __reduce_max_sync(kFull, c.v);
-  const int h = __ffs(__ballot_sync(kFull, c.v == top)) - 1;
-  return Best{top, __shfl_sync(kFull, c.i, h), __shfl_sync(kFull, c.x, h),
-              __shfl_sync(kFull, c.y, h), __shfl_sync(kFull, c.z, h)};
-}
-
-// The best of slots [0, count) of a buffer (slots in index order), in
-// every lane: each lane scans consecutive slots, keeping its first
-// largest value, so the lowest lane of the largest value holds the
-// lowest slot.
-__device__ __forceinline__ Best slot_best(const uint4* head,
-                                          const float* tail, int count) {
-  const int lane = threadIdx.x & 31;
-  const int per = (count + 31) >> 5;
-  unsigned bv = 0;
-  int bs = 0;
-  for (int k = 0; k < per; ++k) {
-    const int s = lane * per + k;
-    if (s < count) {
-      const unsigned v = head[s].x;
-      if (v > bv) {
-        bv = v;
-        bs = s;
-      }
-    }
-  }
-  const unsigned top = __reduce_max_sync(kFull, bv);
-  const int h = __ffs(__ballot_sync(kFull, bv == top)) - 1;
-  const int s = __shfl_sync(kFull, bs, h);
-  const uint4 w = head[s];
-  return Best{w.x, w.y, __uint_as_float(w.z), __uint_as_float(w.w), tail[s]};
-}
-
-// Words of shared memory per thread for P points: P/4 groups of
-// (x[4], y[4], z[4]), padded to an odd number of 16-byte units.
-__host__ __device__ constexpr int stride_words(int p) {
-  return (3 * p / 4) % 2 == 1 ? 3 * p : 3 * p + 4;
 }
 
 __host__ __device__ constexpr int round16(int bytes) {
@@ -303,17 +180,6 @@ __host__ __device__ constexpr int exchange_bytes(int x, int c, int w) {
          : x == kMailbox ? round16(2 * c * w * kCandBytes)
                          : round16(2 * c * kCandBytes) +
                              round16(2 * w * kCandBytes);
-}
-
-__device__ __forceinline__ void visit(float& d, float x, float y, float z,
-                                      float lx, float ly, float lz,
-                                      float& bv, int& bt, int t) {
-  const float nd = fminf(d, sq_dist(x, y, z, lx, ly, lz));
-  d = nd;
-  if (nd > bv) {  // ascending t: the first of equal values stays
-    bv = nd;
-    bt = t;
-  }
 }
 
 // The barrier exchange: every thread's candidate in, the cluster's
@@ -406,14 +272,8 @@ fps_onchip_kernel(const float* __restrict__ xyz, int n, int m, int len,
   float* stage_tail = reinterpret_cast<float*>(stage + 2 * nwarps);
   // stage the slice: coalesced reads of its (count, 3) floats; thread
   // tid owns points [tid * P, tid * P + P) of the slice
-  const float* src = p + static_cast<size_t>(start) * 3;
-  for (int e = tid; e < 3 * count; e += nthreads) {
-    const int j = e / 3;
-    const int c = e - 3 * j;
-    const int owner = j / P;
-    const int t = j - owner * P;
-    coords[owner * S + (t >> 2) * 12 + c * 4 + (t & 3)] = src[e];
-  }
+  stage_slice<P>(coords, p + static_cast<size_t>(start) * 3, count, tid,
+                 nthreads);
   // a slot past the slice keeps distance -1: never above the best
   float d[P];
 #pragma unroll

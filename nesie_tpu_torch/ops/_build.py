@@ -42,7 +42,7 @@ _SIGNATURES = {
     "nesie_ball_query": [_P, _P, _I, _I, _I, _I, _F, _F, _P, _P],
     "nesie_three_nn": [_P, _P, _I, _I, _I, _I, _P, _P],
     "nesie_three_nn_plan": [_I, _I, _I, _P],
-    "nesie_fps_variant": [_I, _P, _P, _I, _I, _I, _P, _P],
+    "nesie_fps_variant": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 # fps_onchip counts the batches of more than 16 rows, fps_onchip_small

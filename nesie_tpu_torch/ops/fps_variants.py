@@ -4,54 +4,60 @@ and the variants' plain PyTorch versions.
 Counterpart of the TPU FPS lab: the step bodies of ``tools/fps_lab.py``
 (``LAB_VARIANTS``) and ``tools/fps_experiments.py``
 (``EXPERIMENT_VARIANTS``). Each variant computes exactly ``fps_ref``'s
-D-FPS; they differ in how a step selects the next index and fetches its
-coordinates (the head note of ``csrc/fps_variants.cu`` says how):
+D-FPS on the shipped FPS's on-chip frame (``csrc/fps_onchip.cu``: a row on
+one CTA or across a cluster, distances in registers, coordinates in
+shared memory) and differs from the shipped step by one idea (the head
+note of ``csrc/fps_variants.cu`` says how):
 
 * select ``max_then_min`` (S2): the max value, then the lowest index
-  holding it; ``refetch`` (S3): an argmax, its value read back by index,
-  then the lowest index holding it; ``bitcast`` (S4): the max of the
-  float32 bits as int32, then the lowest index holding those bits;
-* fetch ``aos3`` (F1) reads the (B, N, 3) input; ``merged4`` (F2) a
-  (B, N, 4) padded copy, one float4 a point; ``soa`` (F3) a (B, 3, N)
-  copy.
+  holding it, two exchanges a step; ``refetch`` (S3): any index of the
+  max, its value read back by index from the distances (kept in shared
+  memory), then the lowest index holding it; ``bitcast`` (S4): the
+  shipped step, one exchange of (value bits, index);
+* fetch ``merged`` (F2): the winner's coordinates ride in the candidate;
+  ``aos3`` (F1): one load of the winner from the (B, N, 3) input;
+  ``blocked`` (F3): one read of the winner from its owner's shared
+  memory (DSMEM across a cluster);
+* rows 2 (``v3``): two rows on one CTA or cluster share each exchange;
+  unroll 4 (``v5``): the step loop unrolled.
 
-Nothing on the eval or training path calls this module: their FPS is
-``ops.pointops.furthest_point_sample``.
+A launch takes the plan of the shipped FPS for the same shape
+(``fps_variant_plan``). Nothing on the eval or training path calls this
+module: their FPS is ``ops.pointops.furthest_point_sample``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
-from .fps import _check_samples, fps_steps
+from .fps import _check_samples, _exchange_id, fps_onchip_plan, fps_steps
 
 
 class Variant(NamedTuple):
     select: str   # "max_then_min", "refetch" or "bitcast"
-    fetch: str    # "aos3", "merged4" or "soa"
-    rows: int     # rows a block carries
+    fetch: str    # "aos3", "merged" or "blocked"
+    rows: int     # rows a CTA or cluster carries
     unroll: int   # unroll factor of the step loop
     replaces: str  # the TPU step body, file:line (tie rule's line after)
 
 
 LAB_VARIANTS = {
-    "v2_merged": Variant("max_then_min", "merged4", 1, 1,
+    "v2_merged": Variant("max_then_min", "merged", 1, 1,
                          "tools/fps_lab.py:45"),
-    "v3_blocked": Variant("max_then_min", "soa", 1, 1,
+    "v3_blocked": Variant("max_then_min", "blocked", 1, 1,
                           "tools/fps_lab.py:112"),
-    "v4_blocked2": Variant("refetch", "soa", 1, 1, "tools/fps_lab.py:150"),
+    "v4_blocked2": Variant("refetch", "blocked", 1, 1, "tools/fps_lab.py:150"),
 }
 EXPERIMENT_VARIANTS = {
     "v1": Variant("max_then_min", "aos3", 1, 1,
                   "tools/fps_experiments.py:86,57"),
     "v2": Variant("bitcast", "aos3", 1, 1, "tools/fps_experiments.py:86,67"),
     "v3": Variant("bitcast", "aos3", 2, 1, "tools/fps_experiments.py:106,67"),
-    "v4": Variant("bitcast", "merged4", 1, 1,
+    "v4": Variant("bitcast", "merged", 1, 1,
                   "tools/fps_experiments.py:134,67"),
-    "v5": Variant("bitcast", "merged4", 1, 4,
+    "v5": Variant("bitcast", "merged", 1, 4,
                   "tools/fps_experiments.py:134,67"),
 }
 # the order is the kernel's variant id (the switch in csrc/fps_variants.cu)
@@ -71,38 +77,48 @@ def launch_counts() -> dict:
     return dict(_LAUNCHES)
 
 
-def merged4(xyz: torch.Tensor) -> torch.Tensor:
-    """(B, N, 3) -> (B, N, 4), the fourth coordinate 0: one 16-byte load a
-    point."""
-    return F.pad(xyz, (0, 1)).contiguous()
+def fps_variant_plan(name: str, batch: int, n: int) -> dict:
+    """The plan a launch of variant ``name`` takes for (batch, n):
+    ``fps_onchip_plan(batch, n)`` itself, the shipped FPS's plan, for a
+    one-row variant. ``v3`` carries two rows on a CTA or cluster, so it
+    takes the plan of ``ceil(batch / 2)`` rows of ``2 n`` points (the cost
+    model with the points an SM holds counted for both rows): its cluster,
+    threads and exchange, and half its points a thread, up to a multiple
+    of 4, for each row. Needs the card; raises where no plan fits."""
+    if VARIANTS[name].rows == 1:
+        return fps_onchip_plan(batch, n)
+    pair = fps_onchip_plan(-(-batch // 2), 2 * n)
+    return dict(cluster=pair["cluster"], threads=pair["threads"],
+                points_per_thread=-(-pair["points_per_thread"] // 8) * 4,
+                resident_clusters=pair["resident_clusters"],
+                exchange=pair["exchange"], rows=2)
 
 
-def soa(xyz: torch.Tensor) -> torch.Tensor:
-    """(B, N, 3) -> (B, 3, N)."""
-    return xyz.transpose(1, 2).contiguous()
-
-
-_LAYOUTS = {"aos3": None, "merged4": merged4, "soa": soa}
+def plan_tag(plan: dict) -> str:
+    """A plan as a label: C=cluster, T=threads, P=points a thread (of each
+    row for two rows), the exchange."""
+    rows = " x2 rows" if plan.get("rows", 1) == 2 else ""
+    return (f"C={plan['cluster']} T={plan['threads']} "
+            f"P={plan['points_per_thread']} {plan['exchange']}{rows}")
 
 
 def fps_variant_cuda(xyz: torch.Tensor, num_samples: int,
                      name: str) -> torch.Tensor:
     """Launch variant ``name`` of ``csrc/fps_variants.cu``: (B, N, 3)
-    float32 on the card -> (B, M) int32. Makes the variant's layout copy
-    first (F2, F3)."""
-    variant = VARIANTS[name]
+    float32 on the card -> (B, M) int32, with ``fps_variant_plan``'s plan.
+    A plan the kernel was not instantiated for raises."""
     _build.check_cuda_input("xyz", xyz)
     B, N, _ = xyz.shape
     _check_samples(N, num_samples)
     out = torch.empty((B, num_samples), dtype=torch.int32, device=xyz.device)
     if B == 0:
         return out
-    layout = _LAYOUTS[variant.fetch]
-    aux = layout(xyz) if layout else xyz
-    dist = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+    plan = fps_variant_plan(name, B, N)
     _build.launch("fps_variant", "nesie_fps_variant", _IDS[name],
-                  xyz.data_ptr(), aux.data_ptr(), B, N, num_samples,
-                  dist.data_ptr(), out.data_ptr(), device=xyz.device)
+                  xyz.data_ptr(), B, N, num_samples, plan["cluster"],
+                  plan["threads"], plan["points_per_thread"],
+                  _exchange_id(plan["exchange"]), out.data_ptr(),
+                  device=xyz.device)
     _LAUNCHES[name] += 1
     return out
 
@@ -134,6 +150,6 @@ _SELECTS = {"max_then_min": _max_then_min, "refetch": _refetch,
 def fps_variant_ref(xyz: torch.Tensor, num_samples: int,
                     name: str) -> torch.Tensor:
     """Plain version of variant ``name``: ``fps_ref``'s loop with the
-    variant's select rule. The fetch form and the rows a block carries
-    change no value, so they are not mirrored."""
+    variant's select rule. The fetch, the rows a CTA carries and the
+    unroll change no value, so they are not mirrored."""
     return fps_steps(xyz, num_samples, _SELECTS[VARIANTS[name].select])

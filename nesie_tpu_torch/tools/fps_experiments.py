@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
 """FPS step-body experiments: the variants of the TPU study
-``tools/fps_experiments.py`` as CUDA kernels, beside ``fps.cu`` and
-``fps_cluster.cu`` on the same input.
+``tools/fps_experiments.py`` as CUDA kernels on the shipped FPS's on-chip
+frame, beside the shipped FPS, ``fps.cu`` and ``fps_cluster.cu`` on the
+same input.
 
     python3 -m nesie_tpu_torch.tools.fps_experiments [--batch 32]
         [--n 40000] [--m 2048] [--rows 2] [--iters 5]
         [--variants xla,v0,v1,v2,v3,v4,v5] [--json-out PATH] [--device cpu]
 
-``xla`` is the oracle ``fps_ref``, ``v0`` the shipped ``fps.cu``, v1-v5
-the variants of ``EXPERIMENT_VARIANTS`` (``ops/fps_variants.py``); the
-lab's (``v2_merged``, ``v3_blocked``, ``v4_blocked2``) may be named too. The
+``xla`` is the oracle ``fps_ref``; ``v0`` the shipped FPS, as in the JAX
+tool: the dispatch ``ops.pointops.furthest_point_sample``, which runs
+``csrc/fps_onchip.cu`` on the card (and ``fps_ref`` on the CPU); v1-v5 the
+variants of ``EXPERIMENT_VARIANTS`` (``ops/fps_variants.py``); the lab's
+(``v2_merged``, ``v3_blocked``, ``v4_blocked2``) may be named too. The
 input is ``default_rng(0).normal(size=(batch, n, 3)) * 3``. For each
 variant it prints the least time of one call over ``--iters`` calls
-(CUDA events), ``exact_vs_xla`` (indices identical to ``fps_ref``) and
-``exact_vs_v0`` (identical to ``fps.cu``), then ``fps_cluster.cu``'s line.
-``--rows`` is the rows a block carries where a variant interleaves rows
-(``v3``, which needs 2); the other variants carry one row a block, as
-``fps.cu`` does. ``--device cpu`` runs the plain versions (no ``v0``, no
-``fps_cluster``) with host-clock times.
+(CUDA events), the ms a step, ``exact_vs_xla`` (indices identical to
+``fps_ref``) and ``exact_vs_v0`` (identical to the shipped FPS) and, for
+a variant, its plan (``ops.fps_variants.fps_variant_plan``); then one line
+each for the two second references, ``fps_cu`` (``csrc/fps.cu``: one
+block of 1024 threads a row, the port's first FPS) and ``fps_cluster``
+(``csrc/fps_cluster.cu``: one cluster a row, streaming from L2). ``--rows``
+is the rows a CTA or cluster carries where a variant interleaves rows
+(``v3``, which needs 2); the other variants carry one row, as the shipped
+FPS does. ``--device cpu`` runs the plain versions (no second references)
+with host-clock times.
 """
 from __future__ import annotations
 
@@ -35,8 +42,11 @@ from nesie_tpu_torch.ops.fps_variants import (
     EXPERIMENT_VARIANTS,
     VARIANTS,
     fps_variant_cuda,
+    fps_variant_plan,
     fps_variant_ref,
+    plan_tag,
 )
+from nesie_tpu_torch.ops.pointops import furthest_point_sample
 
 DEFAULT_VARIANTS = "xla,v0," + ",".join(EXPERIMENT_VARIANTS)
 
@@ -66,25 +76,27 @@ def _call_ms(fn, device: str):
 def run(batch: int = 32, n: int = 40000, m: int = 2048, rows: int = 2,
         iters: int = 5, variants=DEFAULT_VARIANTS.split(","),
         device: str = "cuda") -> dict:
-    """Check and time each variant; returns {name: {ms, exact_vs_xla,
-    exact_vs_v0}}, with a ``fps_cluster`` entry on the card."""
+    """Check and time each variant; returns {name: {ms, ms_per_step,
+    exact_vs_xla, exact_vs_v0[, plan]}}, with ``fps_cu`` and
+    ``fps_cluster`` entries on the card."""
     xyz = make_cloud(batch, n, device)
     on_card = device != "cpu"
     if "v3" in variants and rows != 2:
         raise ValueError("v3 interleaves two rows in a block: needs rows=2")
     run_variant = fps_variant_cuda if on_card else fps_variant_ref
-    fns = {"xla": lambda: fps_ref(xyz, m)}
+    fns = {"xla": lambda: fps_ref(xyz, m),
+           "v0": lambda: furthest_point_sample(xyz, m)}
     for name in VARIANTS:  # the lab's variants too, when asked for
         fns[name] = lambda name=name: run_variant(xyz, m, name)
     if on_card:
-        fns["v0"] = lambda: fps_cuda(xyz, m)
+        fns["fps_cu"] = lambda: fps_cuda(xyz, m)
         fns["fps_cluster"] = lambda: fps_cluster_cuda(xyz, m)
-        variants = [*variants, "fps_cluster"]
+        variants = [*variants, "fps_cu", "fps_cluster"]
     unknown = [v for v in variants if v not in fns]
     if unknown:
         raise ValueError(f"no variant {unknown} on {device}")
     want = fps_ref(xyz, m)
-    want_v0 = fps_cuda(xyz, m) if on_card else None
+    want_v0 = fns["v0"]()
     print(f"device: {torch.cuda.get_device_name(0) if on_card else 'cpu'}  "
           f"batch {batch} n {n} m {m} rows {rows}")
     results = {}
@@ -92,12 +104,17 @@ def run(batch: int = 32, n: int = 40000, m: int = 2048, rows: int = 2,
         out = fns[name]()  # warm-up and the indices checked
         times = [_call_ms(fns[name], device)[1] for _ in range(iters)]
         ms = min(times)
-        exact = torch.equal(out, want)
-        exact_v0 = None if want_v0 is None else torch.equal(out, want_v0)
-        results[name] = {"ms": ms, "exact_vs_xla": exact,
-                         "exact_vs_v0": exact_v0}
-        print(f"{name}: {ms:.4f} ms  exact_xla={exact} exact_v0={exact_v0}",
-              flush=True)
+        res = {"ms": ms, "ms_per_step": ms / max(m - 1, 1),
+               "exact_vs_xla": torch.equal(out, want),
+               "exact_vs_v0": torch.equal(out, want_v0)}
+        plan = ""
+        if on_card and name in VARIANTS:
+            res["plan"] = plan_tag(fps_variant_plan(name, batch, n))
+            plan = f"  [{res['plan']}]"
+        results[name] = res
+        print(f"{name}: {ms:.4f} ms ({res['ms_per_step'] * 1e3:.4f} us a "
+              f"step)  exact_xla={res['exact_vs_xla']} "
+              f"exact_v0={res['exact_vs_v0']}{plan}", flush=True)
     return results
 
 
@@ -120,8 +137,6 @@ def main(argv=None) -> int:
     variants = args.variants.split(",")
     if "v3" in variants and args.rows != 2:
         p.error("v3 interleaves two rows in a block: needs --rows 2")
-    if args.device == "cpu":
-        variants = [v for v in variants if v != "v0"]
     results = run(args.batch, args.n, args.m, args.rows, args.iters,
                   variants, args.device)
     if args.json_out:

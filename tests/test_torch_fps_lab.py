@@ -5,7 +5,10 @@ The JAX lab's step bodies (``tools/fps_lab.py``, ``tools/fps_experiments.py``)
 run in Pallas interpret mode on numpy-seeded clouds, a random one and a
 tie-heavy one (40 distinct points tiled to N); each must give indices
 identical to its variant's plain version in the port and to ``fps_ref``.
-The JAX tools are loaded from their files, unchanged.
+The JAX tools are loaded from their files, unchanged. The host side of
+the kernels' launches is checked too: each variant's plan against the
+shipped FPS's (``fps_onchip_plan`` faked, since it needs the card), and
+``fps_experiments``' ``v0`` against the dispatch.
 """
 import importlib.util
 import inspect
@@ -19,14 +22,17 @@ import numpy as np
 import pytest
 import torch
 
+from nesie_tpu_torch.ops import fps_variants, pointops
 from nesie_tpu_torch.ops.fps import fps_ref
 from nesie_tpu_torch.ops.fps_variants import (
     EXPERIMENT_VARIANTS,
     LAB_VARIANTS,
     VARIANTS,
     fps_variant_cuda,
+    fps_variant_plan,
     fps_variant_ref,
 )
+from nesie_tpu_torch.tools import fps_experiments
 from nesie_tpu_torch.tools.fps_lab import CHECK_SHAPE, check_clouds
 
 torch.set_num_threads(1)
@@ -135,3 +141,60 @@ def test_lab_entry_points_need_the_card_by_default():
         [sys.executable, "-m", "nesie_tpu_torch.tools.fps_lab", "bench"],
         capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+
+
+def _fake_onchip_plan(calls, ppt):
+    """A stand-in for ``fps_onchip_plan`` (which needs the card): records
+    its arguments and answers a plan with ``ppt`` points a thread."""
+    def plan(batch, n):
+        calls.append((batch, n))
+        return dict(cluster=batch % 7 + 1, threads=128, points_per_thread=ppt,
+                    smem_bytes=4096, scratch=False, resident_clusters=33,
+                    exchange="mailbox")
+    return plan
+
+
+@pytest.mark.parametrize("b,n", [(8, 40000), (32, 40000), (3, 600)])
+@pytest.mark.parametrize("name", [v for v in VARIANTS if v != "v3"])
+def test_variant_plan_is_the_shipped_plan(monkeypatch, name, b, n):
+    """A one-row variant launches with the shipped FPS's plan itself."""
+    calls = []
+    fake = _fake_onchip_plan(calls, 48)
+    monkeypatch.setattr(fps_variants, "fps_onchip_plan", fake)
+    assert fps_variant_plan(name, b, n) == fake(b, n)
+    assert calls == [(b, n), (b, n)]
+
+
+@pytest.mark.parametrize("b,ppt,per_row", [
+    (8, 40, 20), (32, 64, 32), (7, 24, 12), (3, 12, 8), (1, 8, 4),
+    (1, 20, 12), (2, 4, 4)])
+def test_two_row_plan_counts_both_rows(monkeypatch, b, ppt, per_row):
+    """v3 takes the shipped plan of ceil(B / 2) rows of 2N points, with half
+    its points a thread (up to a multiple of 4) for each row."""
+    calls = []
+    monkeypatch.setattr(fps_variants, "fps_onchip_plan",
+                        _fake_onchip_plan(calls, ppt))
+    plan = fps_variant_plan("v3", b, 40000)
+    assert calls == [(-(-b // 2), 80000)]
+    assert plan == dict(cluster=-(-b // 2) % 7 + 1, threads=128,
+                        points_per_thread=per_row, resident_clusters=33,
+                        exchange="mailbox", rows=2)
+    assert 2 * per_row >= ppt and per_row % 4 == 0
+
+
+def test_experiments_v0_is_the_shipped_fps(monkeypatch):
+    """``v0`` of ``fps_experiments`` is the dispatch, as in the JAX tool,
+    and ``exact_vs_v0`` is held against it."""
+    assert fps_experiments.furthest_point_sample is \
+        pointops.furthest_point_sample
+    calls = []
+
+    def dispatch(xyz, m):
+        calls.append(tuple(xyz.shape))
+        return pointops.furthest_point_sample(xyz, m)
+
+    monkeypatch.setattr(fps_experiments, "furthest_point_sample", dispatch)
+    res = fps_experiments.run(batch=2, n=64, m=8, iters=1,
+                              variants=["v0", "v2"], device="cpu")
+    assert calls and set(calls) == {(2, 64, 3)}
+    assert res["v0"]["exact_vs_xla"] and res["v2"]["exact_vs_v0"]

@@ -21,7 +21,11 @@ from nesie_tpu_torch.ops.fps import (
     fps_ref,
 )
 from nesie_tpu_torch.ops import fps_variants
-from nesie_tpu_torch.ops.fps_variants import VARIANTS, fps_variant_cuda
+from nesie_tpu_torch.ops.fps_variants import (
+    VARIANTS,
+    fps_variant_cuda,
+    fps_variant_plan,
+)
 from nesie_tpu_torch.ops.three_nn import three_nn_cuda, three_nn_ref
 
 torch.set_num_threads(1)
@@ -185,13 +189,18 @@ def test_fps_onchip_lattice_ties(cuda, b, cluster):
     assert torch.equal(got, fps_cuda(xyz, 500))
 
 
+# every exchange a variant's plan takes: one CTA at 1000 and 1024 points
+# (and the lattice's 512), a cluster of 2 at 4099 (v3: of 3), the
+# clusters of 8 and 32 x 40000 (mailbox; v3 mailbox_cta), an odd B at a
+# cluster shape (mailbox_cta, v3's last cluster one row)
 _VARIANT_SHAPES = [(1, 1000, 1), (3, 1000, 1000), (7, 4099, 256),
-                   (8, 40000, 2048)]
+                   (8, 40000, 2048), (1, 1024, 1024), (32, 40000, 2048),
+                   (7, 40000, 512)]
 _WANT = {}
 
 
-def _fps_oracle(xyz, m):
-    key = (tuple(xyz.shape), m)
+def _fps_oracle(xyz, m, cloud="uniform"):
+    key = (tuple(xyz.shape), m, cloud)
     if key not in _WANT:  # one fps_ref per shape for all eight variants
         _WANT[key] = fps_ref(xyz, m)
     return _WANT[key]
@@ -220,6 +229,55 @@ def test_fps_variant_kernel_lattice_ties(cuda, name):
     xyz = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
     xyz = xyz.reshape(1, -1, 3).contiguous().to(cuda)
     assert torch.equal(fps_variant_cuda(xyz, 200, name), fps_ref(xyz, 200))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_fps_variant_kernel_ties_across_a_cluster(cuda, name):
+    """40 distinct points tiled to 8 x 40000: after 40 steps every distance
+    is 0, a tie that spans every CTA of the row's cluster."""
+    base = np.random.default_rng(1).uniform(size=(8, 40, 3))
+    xyz = torch.from_numpy(np.ascontiguousarray(
+        np.tile(base, (1, 1000, 1)), dtype=np.float32)).to(cuda)
+    assert fps_variant_plan(name, 8, 40000)["cluster"] > 1
+    assert torch.equal(fps_variant_cuda(xyz, 2048, name),
+                       _fps_oracle(xyz, 2048, "tied"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n", [(3, 600), (1, 512), (7, 4099),
+                                 (8, 40000), (32, 40000), (7, 40000)])
+def test_fps_variant_plan_is_the_shipped_plan(cuda, b, n):
+    """Every one-row variant takes fps_onchip_plan's plan; v3 the plan of
+    ceil(B / 2) rows of 2N points with half its points a thread."""
+    for name in VARIANTS:
+        if name != "v3":
+            assert fps_variant_plan(name, b, n) == fps_onchip_plan(b, n)
+    pair = fps_onchip_plan(-(-b // 2), 2 * n)
+    plan = fps_variant_plan("v3", b, n)
+    assert (plan["cluster"], plan["threads"], plan["exchange"]) == (
+        pair["cluster"], pair["threads"], pair["exchange"])
+    assert plan["points_per_thread"] == -(-pair["points_per_thread"] // 8) * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["v2_merged", "v3", "v4"])
+def test_fps_variant_plan_outside_the_instantiated_set_raises(
+        cuda, monkeypatch, name):
+    """No fallback: a plan the kernel was not built for, or one that does
+    not hold the row, fails the launch and counts nothing."""
+    xyz = _uniform((2, 1000, 3), seed=9).to(cuda)
+    plan = fps_variant_plan(name, 2, 1000)
+    before = _build.launch_counts()["fps_variant"]
+    for bad in (dict(plan, points_per_thread=12),  # no such instantiation
+                dict(plan, exchange="barrier"),
+                dict(plan, threads=32),  # 32 x 8 points < 1000
+                dict(plan, cluster=2)):  # the local exchange is one CTA's
+        monkeypatch.setattr(fps_variants, "fps_variant_plan",
+                            lambda *args, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fps_variant_cuda(xyz, 64, name)
+    assert _build.launch_counts()["fps_variant"] == before
 
 
 @pytest.mark.gpu
