@@ -1,0 +1,2 @@
+"""fps_roofline.serve: see ``_fps``."""
+from perfbench.metrics._fps import SOURCE, WRAPS, read  # noqa: F401
