@@ -3483,15 +3483,19 @@ def held(name, got, want, kind: str = "forward") -> float:
 
 def device_profile(fn, runs: int = 2) -> dict:
     """``runs`` calls of ``fn`` under ``torch.profiler`` after one
-    warm-up: wall ms a call, device busy ms (the kernels' device time, one
-    stream), idle share and device ms by kernel group
+    warm-up: wall ms a call, device busy ms (the union of the device
+    events' intervals), idle share and device ms by kernel group
     (``profile_train_step.GROUPS``)."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from nesie_tpu_torch.tools.profile_train_step import GROUPS, kernel_times
+    from nesie_tpu_torch.tools.profile_train_step import (
+        GROUPS,
+        kernel_times,
+        timeline,
+    )
 
     fn()
     torch.cuda.synchronize()
@@ -3507,7 +3511,7 @@ def device_profile(fn, runs: int = 2) -> dict:
         label = next((g for g, pat in GROUPS if re.search(pat, name)),
                      "other")
         groups[label] = groups.get(label, 0.0) + us / 1e3 / runs
-    busy = sum(groups.values())
+    busy = timeline(prof)["busy_ms"] / runs
     return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
                 groups=dict(sorted(groups.items(), key=lambda kv: -kv[1])))
 

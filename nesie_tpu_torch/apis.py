@@ -31,6 +31,7 @@ from nesie_tpu_torch.nn.detector import (
     init_weights_,
     init_weights_flax_,
 )
+from nesie_tpu_torch.utils import span
 
 
 class Detector:
@@ -44,28 +45,39 @@ class Detector:
         self.cfg = cfg
         self.device = torch.device(device)
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        self.requests = 0
 
     @torch.inference_mode()
     def __call__(self, points) -> dict:
         """points: (N, >=3) numpy array or a .bin/.npy path. Returns
         dict(boxes_3d (S, 7) gravity-centered, scores_3d, labels_3d) as
-        numpy arrays."""
-        if isinstance(points, (str, Path)):
-            p = Path(points)
-            points = (np.load(p)[:, :3] if p.suffix == ".npy"
-                      else io.load_points_bin(p))
-        pts = io.add_height(np.asarray(points, np.float32)[:, :3])
-        rng = np.random.default_rng(self.cfg.seed)
-        pts = io.sample_points(pts, self.cfg.num_points, rng)[None]
-        pts = torch.from_numpy(np.ascontiguousarray(pts)).to(self.device)
+        numpy arrays. Spans: ``detector.request`` (``request``: this
+        detector's count of calls) over its phases."""
+        self.requests += 1
+        with span("detector.request", request=self.requests):
+            return self._request(points)
+
+    def _request(self, points) -> dict:
+        with span("detector.preprocess"):
+            if isinstance(points, (str, Path)):
+                p = Path(points)
+                points = (np.load(p)[:, :3] if p.suffix == ".npy"
+                          else io.load_points_bin(p))
+            pts = io.add_height(np.asarray(points, np.float32)[:, :3])
+            rng = np.random.default_rng(self.cfg.seed)
+            pts = io.sample_points(pts, self.cfg.num_points, rng)[None]
+        with span("detector.to_device"):
+            pts = torch.from_numpy(np.ascontiguousarray(pts)).to(self.device)
 
         out = self.model(pts, self.cfg.sample_mod, with_jitter=False,
                          generator=self.generator)
         decoded = decode_and_nms(
             out, pts, nms_thr=self.cfg.nms_thr, score_thr=self.cfg.score_thr,
             use_iou_for_nms=self.cfg.use_iou_for_nms)
-        decoded = {k: v[0].cpu().numpy() for k, v in decoded.items()}
-        boxes, scores, labels = expand_per_class(decoded)
+        with span("detector.fetch"):
+            decoded = {k: v[0].cpu().numpy() for k, v in decoded.items()}
+        with span("detector.expand"):
+            boxes, scores, labels = expand_per_class(decoded)
         return dict(boxes_3d=boxes, scores_3d=scores, labels_3d=labels)
 
 

@@ -11,6 +11,7 @@ import torch
 
 from nesie_tpu_torch.core.boxes import box_corners, corners_minmax, points_in_boxes
 from nesie_tpu_torch.core.nms import aligned_3d_nms_mask
+from nesie_tpu_torch.utils import span
 
 
 def decode_and_nms(results: dict, points: torch.Tensor, nms_thr: float = 0.25,
@@ -25,6 +26,12 @@ def decode_and_nms(results: dict, points: torch.Tensor, nms_thr: float = 0.25,
     selected (B, P) bool. The point-in-box test runs one scene at a time,
     an (N, P) mask each.
     """
+    with span("postprocess.decode_and_nms", b=points.shape[0]):
+        return _decode_and_nms(results, points, nms_thr, score_thr,
+                               use_iou_for_nms)
+
+
+def _decode_and_nms(results, points, nms_thr, score_thr, use_iou_for_nms):
     # SAQE's get_bboxes scores objectness from the quality module's R_obj
     # branch (saqe_head.py:434); Nesie's from the prediction head's
     obj_logits = results.get("R_obj_scores", results["obj_scores"])

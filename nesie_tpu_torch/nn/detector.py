@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from nesie_tpu_torch.ops.paconv import PAConv
+from nesie_tpu_torch.utils import span
 from .nesie_head import NesieHead
 from .pointnet2 import PointNet2SASSG
 from .saqe_head import SAQEHead
@@ -69,9 +70,12 @@ class VoteNetNesie(nn.Module):
         """points: (B, N, in_channels). ``noise`` / ``generator`` /
         ``sample_indices`` / ``rows``: the head's draws, see
         ``NesieHead.forward``."""
-        return self.bbox_head(self.backbone(points), sample_mod, with_jitter,
-                              noise=noise, generator=generator,
-                              sample_indices=sample_indices, rows=rows)
+        with span("nn.forward", device=True, b=points.shape[0],
+                  n=points.shape[1]):
+            return self.bbox_head(self.backbone(points), sample_mod,
+                                  with_jitter, noise=noise,
+                                  generator=generator,
+                                  sample_indices=sample_indices, rows=rows)
 
     def quality_scores(self, results: dict, center, size, heading):
         """Re-run only the quality module on explicit boxes (reference

@@ -8,8 +8,10 @@ named by a hash of the sources, so an edit rebuilds it and an unchanged
 tree reuses it. Each C entry point takes device pointers, sizes
 and a stream, launches on that stream and returns ``cudaGetLastError()``.
 
-Every wrapper counts its launches in ``_LAUNCHES``: one per kernel launch,
-and nowhere else, so a run can show that it went through the kernels.
+Every wrapper counts its launches as ``launch.<kernel>`` in the program's
+counts (``utils.count``): one per kernel launch, and nowhere else, so a
+run can show that it went through the kernels. ``launch_counts`` and
+``reset_launch_counts`` read and clear those.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from nesie_tpu_torch import utils
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nesie_tpu_torch"
@@ -50,19 +54,19 @@ _SIGNATURES = {
 # instrumented kernel's launches
 KERNELS = ("fps", "fps_cluster", "fps_onchip", "fps_onchip_small",
            "fps_onchip_timed", "ball_query", "three_nn", "fps_variant")
-_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lib = None
 build_seconds = None  # wall time of the nvcc build in this process, if any
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    utils.reset_counts("launch.")
 
 
 def launch_counts() -> dict:
-    return dict(_LAUNCHES)
+    """Launches of each of ``KERNELS`` since the last reset."""
+    done = utils.counts("launch.")
+    return {name: done.get(f"launch.{name}", 0) for name in KERNELS}
 
 
 def _nvcc() -> str:
@@ -164,7 +168,7 @@ def launch(kernel: str, entry: str, *args, device: torch.device) -> None:
         err = getattr(library(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    _LAUNCHES[kernel] += 1
+    utils.count(f"launch.{kernel}")
 
 
 def check_cuda_input(name: str, t: torch.Tensor) -> None:

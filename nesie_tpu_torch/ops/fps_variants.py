@@ -31,6 +31,8 @@ from typing import NamedTuple
 
 import torch
 
+from nesie_tpu_torch import utils
+
 from . import _build
 from .fps import _check_samples, _exchange_id, fps_onchip_plan, fps_steps
 
@@ -63,18 +65,17 @@ EXPERIMENT_VARIANTS = {
 # the order is the kernel's variant id (the switch in csrc/fps_variants.cu)
 VARIANTS = {**LAB_VARIANTS, **EXPERIMENT_VARIANTS}
 _IDS = {name: i for i, name in enumerate(VARIANTS)}
-_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    utils.reset_counts("fps_variant.")
 
 
 def launch_counts() -> dict:
-    """Launches of each variant; their sum is ``_build``'s
-    ``fps_variant`` count."""
-    return dict(_LAUNCHES)
+    """Launches of each variant (counts ``fps_variant.<name>``); their sum
+    is ``_build``'s ``fps_variant`` count."""
+    done = utils.counts("fps_variant.")
+    return {name: done.get(f"fps_variant.{name}", 0) for name in VARIANTS}
 
 
 def fps_variant_plan(name: str, batch: int, n: int) -> dict:
@@ -119,7 +120,7 @@ def fps_variant_cuda(xyz: torch.Tensor, num_samples: int,
                   plan["threads"], plan["points_per_thread"],
                   _exchange_id(plan["exchange"]), out.data_ptr(),
                   device=xyz.device)
-    _LAUNCHES[name] += 1
+    utils.count(f"fps_variant.{name}")
     return out
 
 

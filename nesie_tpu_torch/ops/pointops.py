@@ -15,10 +15,16 @@ batch: B <= 16 rows (a ``Detector`` request, the training steps) take the
 mailbox exchange (or one CTA for a short row), and so do more rows (the
 B=32 eval forward). The batch names its launch count
 (``ops.fps.fps_launch_name``).
+
+Each call of a kernel is a host span (``utils.span``): ``pointops.fps``,
+``pointops.ball_query`` and ``pointops.three_nn``, with the shapes
+``b``, ``n``, ``m`` (and ``k``) as attributes.
 """
 from __future__ import annotations
 
 import torch
+
+from nesie_tpu_torch.utils import span
 
 from .ball_query import ball_query_cuda, ball_query_ref
 from .fps import fps_onchip_cuda, fps_ref
@@ -89,7 +95,9 @@ def furthest_point_sample(xyz: torch.Tensor, num_samples: int,
         return _fps_loop(xyz, num_samples, init.float())
     if _on_cpu(xyz):
         return fps_ref(xyz, num_samples)
-    return fps_onchip_cuda(xyz, num_samples)
+    with span("pointops.fps", b=xyz.shape[0], n=xyz.shape[1],
+              m=num_samples):
+        return fps_onchip_cuda(xyz, num_samples)
 
 
 def furthest_point_sample_with_features(points: torch.Tensor,
@@ -128,7 +136,9 @@ def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     xyz, centers = _coords(xyz), _coords(centers)
     if _on_cpu(xyz):
         return ball_query_ref(xyz, centers, radius, num_samples, min_radius)
-    return ball_query_cuda(xyz, centers, radius, num_samples, min_radius)
+    with span("pointops.ball_query", b=xyz.shape[0],
+              n=xyz.shape[1], m=centers.shape[1], k=num_samples):
+        return ball_query_cuda(xyz, centers, radius, num_samples, min_radius)
 
 
 def gather_points(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -153,7 +163,12 @@ def three_nn(query: torch.Tensor, source: torch.Tensor):
     Returns dist (B, M, 3) float32, idx (B, M, 3) int32.
     """
     q, s = _coords(query), _coords(source)
-    idx = three_nn_ref(q, s) if _on_cpu(q) else three_nn_cuda(q, s)
+    if _on_cpu(q):
+        idx = three_nn_ref(q, s)
+    else:
+        with span("pointops.three_nn", b=q.shape[0],
+                  n=s.shape[1], m=q.shape[1]):
+            idx = three_nn_cuda(q, s)
     d = query[:, :, None, :] - group_points(source, idx)  # (B, M, 3, 3)
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
     return torch.sqrt(torch.clamp(d2, min=0.0)), idx

@@ -11,13 +11,16 @@ random weights, BN running statistics randomised, eval mode; with
 ``chip_smoke.py``'s eval path (B=32 synthetic rooms x 40000 x 4), runs
 two warm-up forwards in ``--sample-mod`` (default ``seed``; ``random``
 draws from a seeded generator), then ``--runs`` forwards under
-``torch.profiler`` (CPU and CUDA activities). Prints the wall time per
-forward, the device's busy time (the sum of the kernels' device time, one
-stream) and idle share, the kernels grouped by kind (the groups of
-``profile_train_step``) with their device ms per forward, the largest
-kernels, and each ball query's shape with its launches and device ms per
-forward; then one JSON line of the same numbers. ``profile_forward`` is
-the measurement alone, for a model and batch of the caller's.
+``torch.profiler`` (CPU and CUDA activities) with the program's spans on
+(``utils.span``). Prints the wall time per forward, the device's busy
+time (the union of the device events' intervals, ``profile_train_step.
+timeline``) and idle share, the device's idle time under each innermost
+program span (``nn.forward``, ``pointops.fps``, ...), the kernels grouped
+by kind (the groups of ``profile_train_step``) with their device ms per
+forward, the largest kernels, and each ball query's shape with its
+launches and device ms per forward; then one JSON line of the same
+numbers. ``profile_forward`` is the measurement alone, for a model and
+batch of the caller's.
 """
 from __future__ import annotations
 
@@ -32,11 +35,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import nesie_tpu_torch.nn.pointnet2 as pn2
+from nesie_tpu_torch import utils
 from nesie_tpu_torch.config import apply_overrides, get_config
 from nesie_tpu_torch.data import io
 from nesie_tpu_torch.data.synthetic import make_scene
 from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_, randomize_bn_
-from nesie_tpu_torch.tools.profile_train_step import GROUPS
+from nesie_tpu_torch.tools.profile_train_step import (
+    GROUPS,
+    device_events,
+    timeline,
+)
 from nesie_tpu_torch.train.runner import build_model
 
 B, N_POINTS = 32, 40000
@@ -46,9 +54,10 @@ def profile_forward(model, points, runs: int = 3, sample_mod: str = "seed",
                     generator: torch.Generator | None = None) -> dict:
     """Two warm-up forwards of ``model`` on ``points`` in ``sample_mod``
     (``generator``: ``random``'s draws), then ``runs`` under
-    ``torch.profiler``: wall ms a forward, device busy ms, idle share,
-    device ms by kernel group and by kernel, and the ball queries by
-    shape."""
+    ``torch.profiler`` with spans on: wall ms a forward, device busy ms
+    (the union of the device events' intervals), idle share, idle ms
+    under each innermost program span, device ms by kernel group and by
+    kernel, and the ball queries by shape."""
     queries = []  # (B, N, M, K, radius) of each ball query, in call order
     ball_query = pn2.ball_query
 
@@ -62,6 +71,7 @@ def profile_forward(model, points, runs: int = 3, sample_mod: str = "seed",
             model(points, sample_mod, generator=generator)
         torch.cuda.synchronize()
         pn2.ball_query = recorded
+        was = utils.set_tracing(True)
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -72,14 +82,15 @@ def profile_forward(model, points, runs: int = 3, sample_mod: str = "seed",
                 wall = (time.perf_counter() - t0) * 1e3 / runs
         finally:
             pn2.ball_query = ball_query
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
+            utils.set_tracing(was)
+            utils.clear_spans()
+    kernels = sorted(device_events(prof), key=lambda e: e.time_range.start)
     per_kernel: dict = {}
     for e in kernels:
         per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                               + e.time_range.elapsed_us() / 1e3 / runs)
-    busy = sum(per_kernel.values())
+    tl = timeline(prof)
+    busy = tl["busy_ms"] / runs
     groups: dict = {}
     for name, ms in per_kernel.items():
         label = next((g for g, pat in GROUPS if re.search(pat, name)),
@@ -97,6 +108,7 @@ def profile_forward(model, points, runs: int = 3, sample_mod: str = "seed",
         by_shape[key] = (launches + 1,
                          ms + e.time_range.elapsed_us() / 1e3 / runs)
     return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                idle_ms={k: v / runs for k, v in tl["idle_ms"].items()},
                 groups=groups, per_kernel=per_kernel, ball_query=by_shape)
 
 
@@ -138,7 +150,10 @@ def main() -> int:
           f"the profiler: wall {wall:.3f} ms per forward, device busy "
           f"{busy:.3f} ms, idle share {res['idle_share']:.3f}")
     for label, ms in sorted(res["groups"].items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:10.3f} ms  {ms / busy:6.1%}  {label}")
+        print(f"  {ms:10.3f} ms  {label} (kernel time, streams summed)")
+    print("device idle under the innermost program span, a forward:")
+    for name, ms in res["idle_ms"].items():
+        print(f"  {ms:10.3f} ms  {name}")
     print("largest kernels:")
     for name, ms in sorted(res["per_kernel"].items(),
                            key=lambda kv: -kv[1])[:12]:
@@ -148,6 +163,7 @@ def main() -> int:
         print(f"  {key}: {launches} launches, {ms:.4f} ms per forward")
     print(json.dumps(dict(wall_ms=wall, busy_ms=busy,
                           idle_share=res["idle_share"], groups=res["groups"],
+                          idle_ms=res["idle_ms"],
                           ball_query={k: dict(launches=n, ms_per_forward=ms)
                                       for k, (n, ms)
                                       in res["ball_query"].items()},

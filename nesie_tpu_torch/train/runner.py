@@ -246,9 +246,24 @@ def _host_values(metrics: dict) -> dict:
     return dict(zip(metrics, vals))
 
 
-def _log_metrics(step, epoch, vals: dict, t_step):
+class _StepClock:
+    """Seconds a step between two logged steps: the wall time since the
+    last logged step (or since the clock started) over the steps run
+    since, read after ``_host_values`` has waited for the card."""
+
+    def __init__(self, step: int):
+        self.t, self.step = time.perf_counter(), step
+
+    def per_step(self, step: int) -> float:
+        now = time.perf_counter()
+        s_it = (now - self.t) / max(step - self.step, 1)
+        self.t, self.step = now, step
+        return s_it
+
+
+def _log_metrics(step, epoch, vals: dict, s_it: float):
     msg = ", ".join(f"{k}={v:.4f}" for k, v in sorted(vals.items()))
-    log.info("epoch %d step %d (%.2fs/it): %s", epoch, step, t_step, msg)
+    log.info("epoch %d step %d (%.2fs/it): %s", epoch, step, s_it, msg)
 
 
 def _save(ckpt: CheckpointManager, mesh, state: TrainState,
@@ -314,18 +329,18 @@ def train_supervised(cfg: ExperimentConfig, dataset: SubScanNetScenes,
             yield batch_to_device(batch, device)
 
     start_epoch = state.step // steps_per_epoch
+    clock = _StepClock(state.step)
     with MetricsLogger(work, enabled=mesh.rank == 0) as mlog:
         for epoch in range(start_epoch, cfg.optim.max_epochs):
             order = np.concatenate(
                 [order_rng.permutation(n) for _ in range(cfg.data.repeat)]
             )
             for it, batch in enumerate(Prefetcher(epoch_batches(order))):
-                t0 = time.perf_counter()
                 metrics = step_fn(state, batch, generator=gen)
                 if it % cfg.log_interval == 0:
                     vals = _host_values(metrics)
                     _log_metrics(state.step, epoch, vals,
-                                 time.perf_counter() - t0)
+                                 clock.per_step(state.step))
                     mlog.log(state.step, vals)
             if (epoch + 1) % cfg.checkpoint_interval_epochs == 0:
                 _save(ckpt, mesh, state)
@@ -398,6 +413,7 @@ def train_semi(cfg: ExperimentConfig, dataset: SimiScanNetScenes,
     start_epoch = state.step // steps_per_epoch
     pseudo_means = [] if run_stats is None else run_stats.setdefault(
         "num_pseudo_per_step", [])
+    clock = _StepClock(state.step)
     with MetricsLogger(work, enabled=mesh.rank == 0) as mlog:
         for epoch in range(start_epoch, cfg.optim.max_epochs):
             order = np.concatenate(
@@ -407,7 +423,6 @@ def train_semi(cfg: ExperimentConfig, dataset: SimiScanNetScenes,
             ep_pseudo = torch.zeros((), device=device)
             ep_steps = 0
             for it, batch in enumerate(Prefetcher(epoch_batches(order))):
-                t0 = time.perf_counter()
                 ulb_state, metrics = step_fn(state, ulb_state, batch,
                                              generator=gen,
                                              teacher_generator=gen_t)
@@ -416,7 +431,7 @@ def train_semi(cfg: ExperimentConfig, dataset: SimiScanNetScenes,
                 if it % cfg.log_interval == 0:
                     vals = _host_values(metrics)
                     _log_metrics(state.step, epoch, vals,
-                                 time.perf_counter() - t0)
+                                 clock.per_step(state.step))
                     mlog.log(state.step, vals)
             total_pseudo = float(ep_pseudo)
             mean_pseudo = total_pseudo / max(ep_steps, 1)

@@ -34,6 +34,7 @@ from nesie_tpu_torch.data.augment import (
 )
 from nesie_tpu_torch.losses import iou_3d_loss, softmax_cross_entropy, surface_loss_mse
 from nesie_tpu_torch.nn.layers import frozen_bn_stats
+from nesie_tpu_torch.utils import span
 from .pseudo_label import PseudoLabelConfig, classwise_acc, get_pseudo_labels
 from .saqe_loss import saqe_supervised_loss, saqe_unsup_loss
 from .state import TrainState, apply_gradients, ema_update
@@ -161,6 +162,12 @@ def make_semi_train_step(
         indices of ``sample_mod="random"``), see NesieHead.forward;
     teacher_noise / teacher_generator: the teacher's, from its own
         generator (the JAX step draws them from its teacher key).
+
+    Spans (``utils.span``): ``semi.step`` (``step``: the count before the
+    update) over ``semi.augment``, ``semi.teacher``, ``semi.pseudo_label``,
+    ``semi.ulb_state``, ``semi.student``, ``semi.targets``, ``semi.loss``,
+    ``apply_gradients``' ``train.backward`` and ``train.update``, and
+    ``semi.ema``.
     """
     if head == "saqe":
         saqe_cfg = saqe_loss_config(loss_cfg)
@@ -182,62 +189,80 @@ def make_semi_train_step(
     def step(state: TrainState, ulb_state: UlbState, batch: dict, noise=None,
              generator: torch.Generator | None = None, teacher_noise=None,
              teacher_generator: torch.Generator | None = None):
+        with span("semi.step", step=state.step):
+            return _step(state, ulb_state, batch, noise, generator,
+                         teacher_noise, teacher_generator)
+
+    def _step(state, ulb_state, batch, noise, generator, teacher_noise,
+              teacher_generator):
         B = batch["points_raw_s"].shape[0]
         rows = parallel.part_rows(n_labeled, B - n_labeled)
-        points_s = augment_points(batch["points_raw_s"], batch["aug_s"],
-                                  shift_height=True)
-        points_t = augment_points(batch["points_raw_t"], batch["aug_t"],
-                                  shift_height=True)
-        gt_boxes = augment_boxes(batch["gt_boxes"], batch["aug_s"])
+        with span("semi.augment"):
+            points_s = augment_points(batch["points_raw_s"], batch["aug_s"],
+                                      shift_height=True)
+            points_t = augment_points(batch["points_raw_t"], batch["aug_t"],
+                                      shift_height=True)
+            gt_boxes = augment_boxes(batch["gt_boxes"], batch["aug_s"])
 
         # teacher on the weak view: batch statistics, no stat update
-        teacher = state.teacher.train()
-        with torch.no_grad(), frozen_bn_stats(teacher):
-            teacher_out = teacher(points_t, sample_mod,
-                                  with_jitter=teacher_jitter,
-                                  noise=teacher_noise,
-                                  generator=teacher_generator, rows=rows)
-        teacher.eval()
+        with span("semi.teacher", device=True):
+            teacher = state.teacher.train()
+            with torch.no_grad(), frozen_bn_stats(teacher):
+                teacher_out = teacher(points_t, sample_mod,
+                                      with_jitter=teacher_jitter,
+                                      noise=teacher_noise,
+                                      generator=teacher_generator, rows=rows)
+            teacher.eval()
 
-        acc = classwise_acc(ulb_state.ulb_list, ulb_state.ulb_flag,
-                            num_labeled_scans, pl_cfg.thresh_warmup,
-                            literal=pl_cfg.literal_reference_cbl)
-        pl = get_pseudo_labels(teacher_out, acc, pl_cfg, rows)
-        pl_boxes = reproject_boxes(pl.boxes, batch["aug_t"], batch["aug_s"])
-        pl_boxes = pl_boxes * pl.valid[..., None]
+        with span("semi.pseudo_label"):
+            acc = classwise_acc(ulb_state.ulb_list, ulb_state.ulb_flag,
+                                num_labeled_scans, pl_cfg.thresh_warmup,
+                                literal=pl_cfg.literal_reference_cbl)
+            pl = get_pseudo_labels(teacher_out, acc, pl_cfg, rows)
 
-        hist = (F.one_hot(pl.labels.long(), pl_cfg.num_classes).float()
-                * pl.valid[..., None]).sum(1)
-        # every rank's unlabeled rows in global order: the last-row rule
-        # is by global position
-        new_ulb_state = update_ulb_state(
-            ulb_state,
-            parallel.all_gather_rows(batch["ulb_scan_idx"][n_labeled:].long()),
-            parallel.all_gather_rows(hist[n_labeled:]))
+        with span("semi.ulb_state"):
+            pl_boxes = reproject_boxes(pl.boxes, batch["aug_t"],
+                                       batch["aug_s"])
+            pl_boxes = pl_boxes * pl.valid[..., None]
+            hist = (F.one_hot(pl.labels.long(), pl_cfg.num_classes).float()
+                    * pl.valid[..., None]).sum(1)
+            # every rank's unlabeled rows in global order: the last-row
+            # rule is by global position
+            new_ulb_state = update_ulb_state(
+                ulb_state,
+                parallel.all_gather_rows(
+                    batch["ulb_scan_idx"][n_labeled:].long()),
+                parallel.all_gather_rows(hist[n_labeled:]))
 
-        state.model.train()
-        out = state.model(points_s, sample_mod, with_jitter=True, noise=noise,
-                          generator=generator, rows=rows)
+        with span("semi.student"):
+            state.model.train()
+            out = state.model(points_s, sample_mod, with_jitter=True,
+                              noise=noise, generator=generator, rows=rows)
         out_sup, out_unsup = _slice(out, 0, n_labeled), _slice(out, n_labeled, B)
-        sup_targets = get_targets(
-            points_s[:n_labeled, :, :3], gt_boxes[:n_labeled],
-            batch["gt_labels"][:n_labeled], batch["gt_valid"][:n_labeled],
-            out_sup["aggregated_points"], pos_distance_thr=pos_distance_thr,
-            neg_distance_thr=neg_distance_thr,
-            gt_per_seed=loss_cfg.gt_per_seed)
-        sup_total, sup_terms = sup_loss_fn(out_sup, sup_targets)
-        unsup_targets = get_targets(
-            points_s[n_labeled:, :, :3], pl_boxes[n_labeled:],
-            pl.labels[n_labeled:], pl.valid[n_labeled:],
-            out_unsup["aggregated_points"], pos_distance_thr=pos_distance_thr,
-            neg_distance_thr=neg_distance_thr,
-            gt_per_seed=loss_cfg.gt_per_seed)
-        unsup_total, unsup_terms = unsup_loss_fn(
-            out_unsup, unsup_targets, pl.quality[n_labeled:])
-        total = sup_total + unsup_total
+        with span("semi.targets"):
+            sup_targets = get_targets(
+                points_s[:n_labeled, :, :3], gt_boxes[:n_labeled],
+                batch["gt_labels"][:n_labeled], batch["gt_valid"][:n_labeled],
+                out_sup["aggregated_points"],
+                pos_distance_thr=pos_distance_thr,
+                neg_distance_thr=neg_distance_thr,
+                gt_per_seed=loss_cfg.gt_per_seed)
+            unsup_targets = get_targets(
+                points_s[n_labeled:, :, :3], pl_boxes[n_labeled:],
+                pl.labels[n_labeled:], pl.valid[n_labeled:],
+                out_unsup["aggregated_points"],
+                pos_distance_thr=pos_distance_thr,
+                neg_distance_thr=neg_distance_thr,
+                gt_per_seed=loss_cfg.gt_per_seed)
+        with span("semi.loss"):
+            sup_total, sup_terms = sup_loss_fn(out_sup, sup_targets)
+            unsup_total, unsup_terms = unsup_loss_fn(
+                out_unsup, unsup_targets, pl.quality[n_labeled:])
+            total = sup_total + unsup_total
 
         grad_norm = apply_gradients(state, total)
-        ema_update(state, ema_momentum, ema_warm_up, ema_bn_stats)
+        with span("semi.ema", device=True):
+            ema_update(state, ema_momentum, ema_warm_up, ema_bn_stats)
         metrics = {k: v.detach() for k, v in {**sup_terms,
                                               **unsup_terms}.items()}
         metrics["loss"] = total.detach()

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from nesie_tpu_torch import parallel
+from nesie_tpu_torch.utils import span
 
 
 @dataclass
@@ -123,21 +124,25 @@ def apply_gradients(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
     Under a launched process group ``loss`` is this rank's share of the
     global loss and the gradients are summed over the ranks before the
     clip. Returns the gradients' global norm before clipping."""
-    state.optimizer.zero_grad(set_to_none=False)
-    loss.backward()
-    params = [p for g in state.optimizer.param_groups for p in g["params"]]
-    for p in params:  # optax updates a parameter without gradient too
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    # the global loss is the sum of the ranks' losses: sum the gradients
-    # (not DDP's mean), so clip and AdamW see the one-process gradient
-    parallel.all_reduce_sum_([p.grad for p in params])
-    norm = clip_by_global_norm_([p.grad for p in params],
-                                state.grad_clip_norm)
-    lr = state.lr_schedule(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
+    with span("train.backward"):
+        state.optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+    with span("train.update", device=True):
+        params = [p for g in state.optimizer.param_groups
+                  for p in g["params"]]
+        for p in params:  # optax updates a parameter without gradient too
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        # the global loss is the sum of the ranks' losses: sum the
+        # gradients (not DDP's mean), so clip and AdamW see the
+        # one-process gradient
+        parallel.all_reduce_sum_([p.grad for p in params])
+        norm = clip_by_global_norm_([p.grad for p in params],
+                                    state.grad_clip_norm)
+        lr = state.lr_schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
     state.step += 1
     return norm
 
