@@ -25,7 +25,10 @@ file; fails without them. In order:
    five shapes (SA1-SA4, the aggregation) at B=32 and at SA1 for B=12;
    three-NN at the side grid,
    the box grid and the two FP shapes, each beside ``torch.topk`` of
-   ``torch.cdist``;
+   ``torch.cdist``; the decode's keep mask (``csrc/decode_nms.cu``: point
+   counts and class-aware NMS) at the eval batch (32 x 40000, 256
+   proposals) and a request (1 x 40000), keep mask and counts identical
+   to the plain per-scene version on the card;
    [fps-lab], counts set to 0 before and read after (path ``lab``): the
    FPS lab's two entry points run all eight step variants of
    ``csrc/fps_variants.cu`` (the TPU lab's K5 and K6, on the shipped
@@ -238,6 +241,10 @@ K2_SHAPES = (("a Detector request", 1, N_POINTS, 2048),
              ("vote-mode aggregation", 12, 1024, 256),
              ("the single-row regime", 2, 200000, 2048))
 K2_MAIN = 1  # the shape reported in the kernels line
+# the decode's keep mask (csrc/decode_nms.cu) at the eval batch and a
+# request: (what, B, proposals a scene), 4-channel clouds of N_POINTS
+DECODE_SHAPES = (("eval batch", B, 256), ("a Detector request", 1, 256))
+DECODE_THR = dict(nms_thr=0.25, score_thr=0.05)
 # CPU-vs-GPU rule for one scene: float outputs within atol + rtol*|x|,
 # and a proposal agrees when all its box, objectness and IoU outputs do
 ATOL = RTOL = 1e-3
@@ -539,6 +546,39 @@ def three_nn_bound(b: int, m: int, n: int):
     """Three-NN: 8 operations per (query, source) pair for the distance
     and one compare; reads both point sets, writes 3 indices a query."""
     return bound(9.0 * b * m * n, 12.0 * b * (m + n) + 12.0 * b * m)
+
+
+def decode_nms_bound(b: int, n: int, p: int):
+    """The decode's keep mask: 14 operations a point-in-box test (3
+    differences, 4 products, a difference, a sum, 3 compares, 2 ands) and
+    25 an IoU pair of a scene's upper triangle; reads x, y, z of each
+    point and the boxes' inputs (box, cos, sin, minmax, score, class),
+    writes and reads the counts, writes the mask."""
+    return bound(14.0 * b * n * p + 25.0 * b * p * (p - 1) / 2,
+                 12.0 * b * n + (28 + 8 + 24 + 4 + 8 + 8 + 1) * b * p)
+
+
+def decode_case(xyz, p: int, seed: int):
+    """Inputs of the keep mask on ``xyz``'s card: the cloud with a fourth
+    channel (the height), p boxes a scene around its points (0.1-1.6 m,
+    any yaw; some empty, many overlapping), scores on a grid of 1/64 (ties)
+    and 4 classes."""
+    import torch
+
+    g = torch.Generator(xyz.device).manual_seed(seed)
+    b, n, _ = xyz.shape
+    pts = torch.cat([xyz, xyz[..., 2:3]], -1).contiguous()
+    pick = torch.randint(0, n, (b, p), generator=g, device=xyz.device)
+    around = torch.gather(xyz, 1, pick[..., None].expand(b, p, 3))
+    bbox = torch.cat([
+        around + 0.3 * torch.randn((b, p, 3), generator=g, device=xyz.device),
+        0.1 + 1.5 * torch.rand((b, p, 3), generator=g, device=xyz.device),
+        (torch.rand((b, p, 1), generator=g, device=xyz.device) - 0.5)
+        * 2 * np.pi], -1).contiguous()
+    obj = torch.round(torch.rand((b, p), generator=g, device=xyz.device)
+                      * 64) / 64
+    cls = torch.randint(0, 4, (b, p), generator=g, device=xyz.device)
+    return pts, bbox, obj, cls
 
 
 def fps_lab_phase():
@@ -4393,6 +4433,7 @@ def main() -> int:
     from nesie_tpu_torch.nn.detector import VoteNetNesie, init_weights_, randomize_bn_
     from nesie_tpu_torch.ops import _build, pointops
     from nesie_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_ref
+    from nesie_tpu_torch.ops.decode_nms import keep_mask_cuda, keep_mask_ref
     from nesie_tpu_torch.ops.fps import (
         fps_cluster_cuda,
         fps_cluster_plan,
@@ -4573,7 +4614,31 @@ def main() -> int:
             results["three_nn"] = res
             bounds["three_nn"] = (b_ms, b_by)
             library["three_nn"] = lib_ms
-    del xyz, centers, seeds, bq_shapes, q, src
+
+    # the decode's keep mask: selected and counts stacked as int32
+    decode_ms = {}
+    for what, b, p in DECODE_SHAPES:
+        case = decode_case(xyz[:b], p, seed=b)
+        tag = f"B={b} N={N_POINTS} P={p}"
+
+        def both(fn, case=case):
+            sel, counts = fn(*case, **DECODE_THR)
+            return torch.stack([sel.to(torch.int32), counts])
+
+        res = kernel_phase(f"decode_nms {tag} ({what})",
+                           lambda: both(keep_mask_cuda),
+                           lambda: both(keep_mask_ref), reps=20)
+        kept = int(keep_mask_cuda(*case, **DECODE_THR)[0].sum())
+        b_ms, b_by = decode_nms_bound(b, N_POINTS, p)
+        decode_ms[tag] = dict(ms=res[1], plain_ms=res[2], bound_ms=b_ms,
+                              bound_by=b_by, selected=kept)
+        print(f"[kernel] decode_nms {tag} ({what}): {res[1]:.4f} ms, plain "
+              f"{res[2]:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {kept} of "
+              f"{b * p} proposals selected")
+        if b == B:
+            results["decode_nms"] = res
+            bounds["decode_nms"] = (b_ms, b_by)
+    del xyz, centers, seeds, bq_shapes, q, src, case
 
     # ---- 3b. the FPS lab -----------------------------------------------
     lab_launches, lab_entries = fps_lab_phase()
@@ -4619,6 +4684,9 @@ def main() -> int:
     # ----- end of the eval path
     print(f"[slice] launches during the eval path: {launches['eval']}")
     check_launches(launches["eval"], "eval", need=EVAL_KERNELS)
+    # two decodes of the batch and one a request, two launches each
+    check_counts(launches["eval"], "eval",
+                 {"decode_nms": 2 * (2 + len(requests))})
     ms = float(np.median(times))
     print(f"[slice] eval forward B={B} x {N_POINTS} x 4: median {ms:.3f} ms "
           f"per batch over {len(times)} runs ({times}), "
@@ -4683,6 +4751,7 @@ def main() -> int:
     # ----- end of the training path
     print(f"[train] launches during the training path: {launches['train']}")
     check_launches(launches["train"], "training")
+    check_counts(launches["train"], "training", {"decode_nms": 0})
 
     # ---- 6. one training step, card vs CPU ------------------------------
     gpu_vs_cpu_training_step(dev)
@@ -4743,6 +4812,9 @@ def main() -> int:
                        "nesie_tpu/ops/pallas_ball_query.py:39"),
         "three_nn": ("nesie_tpu_torch/csrc/three_nn.cu",
                      "nesie_tpu/ops/pallas_three_nn.py:35"),
+        "decode_nms": ("nesie_tpu_torch/csrc/decode_nms.cu",
+                       "none (the JAX package decodes in XLA: "
+                       "nesie_tpu/eval/postprocess.py)"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -4771,6 +4843,8 @@ def main() -> int:
             entry["by_shape"] = bq_ms
         if name == "three_nn":
             entry["by_shape"] = k4_ms
+        if name == "decode_nms":
+            entry["by_shape"] = decode_ms
         if name in options["kernels"]:
             entry["options_by_shape"] = options["kernels"][name]
         if name in ddp["kernels"]:

@@ -3,14 +3,20 @@
 Counterpart of ``nesie_tpu/eval/postprocess.py``: ``decode_and_nms``
 gives the keep mask on the device; ``expand_per_class`` expands the kept
 proposals per class on the host.
+
+The keep mask dispatches on the device of the clouds: a CPU tensor takes
+the plain per-scene loop (``ops.decode_nms.keep_mask_ref``), a CUDA tensor
+the hand-written kernels (``keep_mask_cuda``: the whole batch, no host
+sync, counted as ``launch.decode_nms``), which raise rather than fall
+back. The kernels round every operation as the plain version's separate
+PyTorch ops do, so both make the same float32 decisions on the card.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from nesie_tpu_torch.core.boxes import box_corners, corners_minmax, points_in_boxes
-from nesie_tpu_torch.core.nms import aligned_3d_nms_mask
+from nesie_tpu_torch.ops.decode_nms import keep_mask_cuda, keep_mask_ref
 from nesie_tpu_torch.utils import span
 
 
@@ -23,8 +29,7 @@ def decode_and_nms(results: dict, points: torch.Tensor, nms_thr: float = 0.25,
     bbox_preds, iou_scores);
     points: (B, N, >=3) the input clouds, for the non-empty-box filter.
     Returns bbox (B, P, 7), obj_scores (B, P), sem_scores (B, P, C) and
-    selected (B, P) bool. The point-in-box test runs one scene at a time,
-    an (N, P) mask each.
+    selected (B, P) bool.
     """
     with span("postprocess.decode_and_nms", b=points.shape[0]):
         return _decode_and_nms(results, points, nms_thr, score_thr,
@@ -42,16 +47,15 @@ def _decode_and_nms(results, points, nms_thr, score_thr, use_iou_for_nms):
         sem_argmax = results["sem_scores"].argmax(dim=-1, keepdim=True)
         obj = obj * results["iou_scores"].gather(-1, sem_argmax)[..., 0]
 
-    selected = []
-    for bbox_b, obj_b, sem_b, pts_b in zip(bbox, obj, sem, points):
-        inside = points_in_boxes(pts_b[:, :3], bbox_b, bottom_center=False)
-        nonempty = inside.sum(dim=0) > 5
-        mm = corners_minmax(box_corners(bbox_b))
-        keep = aligned_3d_nms_mask(mm, obj_b, sem_b.argmax(dim=-1), nms_thr,
-                                   valid_mask=nonempty)
-        selected.append(keep & (obj_b > score_thr))
-    return dict(bbox=bbox, obj_scores=obj, sem_scores=sem,
-                selected=torch.stack(selected))
+    classes = sem.argmax(dim=-1)
+    if points.device.type == "cpu":
+        selected, _ = keep_mask_ref(points, bbox, obj, classes, nms_thr,
+                                    score_thr)
+    else:
+        selected, _ = keep_mask_cuda(points.contiguous(), bbox.contiguous(),
+                                     obj.contiguous(), classes, nms_thr,
+                                     score_thr)
+    return dict(bbox=bbox, obj_scores=obj, sem_scores=sem, selected=selected)
 
 
 def expand_per_class(decoded_b: dict):

@@ -47,13 +47,17 @@ _SIGNATURES = {
     "nesie_three_nn": [_P, _P, _I, _I, _I, _I, _P, _P],
     "nesie_three_nn_plan": [_I, _I, _I, _P],
     "nesie_fps_variant": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "nesie_decode_nms_counts": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    "nesie_decode_nms_keep": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
 }
 
 # fps_onchip counts the batches of more than 16 rows, fps_onchip_small
 # the others (ops.fps.fps_launch_name), fps_onchip_timed the
-# instrumented kernel's launches
+# instrumented kernel's launches; decode_nms counts both launches of the
+# eval decode's keep mask (point counts, then NMS)
 KERNELS = ("fps", "fps_cluster", "fps_onchip", "fps_onchip_small",
-           "fps_onchip_timed", "ball_query", "three_nn", "fps_variant")
+           "fps_onchip_timed", "ball_query", "three_nn", "fps_variant",
+           "decode_nms")
 
 _lib = None
 build_seconds = None  # wall time of the nvcc build in this process, if any

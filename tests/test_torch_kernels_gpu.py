@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from nesie_tpu_torch.core.boxes import box_corners, corners_minmax
 from nesie_tpu_torch.ops import _build
 from nesie_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_ref
 from nesie_tpu_torch.ops.fps import (
@@ -27,6 +28,12 @@ from nesie_tpu_torch.ops.fps_variants import (
     fps_variant_plan,
 )
 from nesie_tpu_torch.ops.three_nn import three_nn_cuda, three_nn_ref
+from nesie_tpu_torch.ops.decode_nms import (
+    MAX_BOXES,
+    box_minmax,
+    keep_mask_cuda,
+    keep_mask_ref,
+)
 
 torch.set_num_threads(1)
 
@@ -810,3 +817,195 @@ def test_mono3d_and_overfit_decode_on_card(cuda):
             assert np.array_equal(cpu[k].numpy(), b["decoded"][k]), k
         for k in ("obj_scores", "sem_scores"):
             assert np.abs(cpu[k].numpy() - b["decoded"][k]).max() <= 1e-6, k
+
+
+# ---- the eval decode's keep mask (csrc/decode_nms.cu) -------------------
+
+
+def _decode_case(b, n, p, seed):
+    """Clouds of n points x 4 channels in a 6 x 6 x 3 m room, p boxes a
+    scene around points of the cloud (some empty, many overlapping), scores
+    on a grid of 1/64 (many ties, some 0 and -0) and 4 classes."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(size=(b, n, 4)) * np.array([6.0, 6.0, 3.0, 1.0])
+    around = pts[np.arange(b)[:, None], rng.integers(0, n, size=(b, p)), :3]
+    bbox = np.concatenate([
+        around + rng.normal(scale=0.3, size=(b, p, 3)),
+        0.1 + 1.5 * rng.uniform(size=(b, p, 3)),
+        rng.uniform(-np.pi, np.pi, size=(b, p, 1))], -1)
+    obj = np.round(rng.uniform(size=(b, p)) * 64) / 64
+    obj[rng.uniform(size=(b, p)) < 0.05] = -0.0
+    t = [torch.from_numpy(x.astype(np.float32)) for x in (pts, bbox, obj)]
+    return (*t, torch.from_numpy(rng.integers(0, 4, size=(b, p))))
+
+
+def _crafted_case():
+    """Three scenes of 10 boxes, with the keep mask they must give at
+    score_thr -1 (selected = kept) and nms_thr 0.25, and the counts of
+    the boxes that sit at the non-empty threshold."""
+    g0, g1, g2 = (0.0, 0.0, 0.0), (10.0, 0.0, 0.0), (20.0, 0.0, 0.0)
+    unit = (2.0, 2.0, 2.0)
+    boxes = [  # centre, size, yaw, class, score
+        (g0, unit, 0.0, 0, 0.9),     # 0 kept: 6 points
+        (g1, unit, 0.0, 0, 0.95),    # 1 empty (exactly 5 points)
+        (g0, unit, 0.0, 1, 0.8),     # 2 suppressed by 9 (class 1)
+        (g0, unit, 0.0, 0, 0.9),     # 3 ties 0's score: later index, out
+        ((10.0, 0.0, 0.25), unit, 0.0, 0, 0.5),  # 4 kept: 1 is empty
+        (g2, unit, 0.0, 2, -0.0),    # 5 kept: -0 and +0 tie, index order
+        (g2, unit, 0.0, 2, 0.0),     # 6 out
+        ((50.0, 50.0, 50.0), unit, 0.0, 0, 0.99),  # 7 empty
+        (g0, unit, np.pi / 4, 0, 0.7),  # 8 suppressed by 0 (IoU 0.5)
+        (g0, unit, 0.0, 1, 0.85),    # 9 kept: overlaps 0, other class
+    ]
+    faces = [(1, 0, 0), (0, -1, 0),  # on box 0's xy faces: outside
+             (0, 0, 1), (0, 0, -1),  # on its z faces: inside
+             (0.5, 0.5, 0.5), (-0.5, 0.2, 0.9), (0.99, 0.99, -0.99),
+             (0.1, 0.1, 0.1)]
+    five = [(10, 0, 0), (10.5, 0, 0), (9.5, 0, 0), (10, 0.5, 0), (10, 0, 0.5),
+            (10, 0, 1.2)]  # the last one in box 4 only
+    six = [(20, 0, 0), (20.5, 0, 0), (19.5, 0, 0), (20, 0.5, 0), (20, 0, 0.5),
+           (20, 0, -0.5)]
+    far = [(100.0, 100.0, 100.0)]
+    clouds = [faces + five + six + far * 4, far * 24,
+              faces + far * 16]
+    pts = np.array([[(*q, 0.0) for q in c] for c in clouds], np.float64)
+    bbox = np.array([(*c, *s, y) for c, s, y, _, _ in boxes])
+    same = np.array([(*g0, *unit, 0.0)] * len(boxes))
+    bbox = np.stack([bbox, bbox, same])
+    cls = np.array([[k for *_, k, _ in boxes], [k for *_, k, _ in boxes],
+                    [0] * len(boxes)])
+    obj = np.array([[s for *_, s in boxes]] * 2 + [[0.5] * len(boxes)])
+    keep = np.zeros((3, len(boxes)), bool)
+    keep[0, [0, 4, 5, 9]] = True
+    keep[2, 0] = True
+    t = [torch.from_numpy(x.astype(np.float32)) for x in (pts, bbox, obj)]
+    counts = {(0, 0): 6, (0, 1): 5, (0, 4): 6, (0, 5): 6, (2, 0): 6}
+    return (*t, torch.from_numpy(cls)), torch.from_numpy(keep), counts
+
+
+@pytest.mark.parametrize("device", ["cpu",
+                                    pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_decode_nms_crafted_cases(request, device):
+    """Equal scores keep index order (-0 and +0 too), points on the xy
+    faces are outside and on the z faces inside, 5 points is empty and 6
+    is not, an empty box suppresses nothing, a scene with no non-empty box
+    keeps nothing, and boxes of other classes do not suppress each other:
+    the plain version on the CPU, and the kernel and the plain version on
+    the card."""
+    if device == "cuda":
+        request.getfixturevalue("cuda")
+    inputs, keep, counts = _crafted_case()
+    inputs = [t.to(device) for t in inputs]
+    runs = [keep_mask_ref(*inputs, 0.25, -1.0)]
+    if device == "cuda":
+        runs.append(keep_mask_cuda(*inputs, 0.25, -1.0))
+    for selected, got in runs:
+        assert torch.equal(selected.cpu(), keep)
+        for (b, k), n in counts.items():
+            assert int(got[b, k]) == n, (b, k)
+    if device == "cuda":
+        assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,p", [(1, 40000, 256), (3, 4097, 256),
+                                   (32, 40000, 256), (2, 1000, 1024)])
+def test_decode_nms_kernel_matches_plain(cuda, b, n, p):
+    """The keep mask and the point counts of the kernel are the plain
+    version's on the card, one launch of each of the two kernels a call;
+    the batched minmax is the per-scene one bit for bit."""
+    pts, bbox, obj, cls = (t.to(cuda) for t in _decode_case(b, n, p, n + p))
+    for thr in (0.25, 0.05):
+        before = _build.launch_counts()["decode_nms"]
+        got, got_counts = keep_mask_cuda(pts, bbox, obj, cls, thr, 0.05)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["decode_nms"] == before + 2
+        want, want_counts = keep_mask_ref(pts, bbox, obj, cls, thr, 0.05)
+        assert torch.equal(got_counts, want_counts)
+        assert torch.equal(got, want)
+        assert 0 < int(want.sum()) < b * p
+    mm = box_minmax(bbox)
+    for i in range(b):
+        assert torch.equal(mm[i], corners_minmax(box_corners(bbox[i])))
+
+
+@pytest.mark.gpu
+def test_decode_and_nms_makes_no_host_sync(cuda):
+    """A B=32 decode of head outputs on the card runs the kernels (two
+    launches) and never makes the host wait for the card."""
+    from nesie_tpu_torch.eval.postprocess import decode_and_nms
+
+    pts, bbox, _, _ = _decode_case(32, 40000, 256, 9)
+    g = torch.Generator().manual_seed(9)
+    out = {"bbox_preds": bbox, "obj_scores": torch.randn(32, 256, 2,
+                                                         generator=g),
+           "sem_scores": torch.randn(32, 256, 18, generator=g),
+           "iou_scores": torch.rand(32, 256, 18, generator=g)}
+    out = {k: v.to(cuda) for k, v in out.items()}
+    pts = pts.to(cuda)
+    decode_and_nms(out, pts)
+    torch.cuda.synchronize()
+    before = _build.launch_counts()["decode_nms"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = decode_and_nms(out, pts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _build.launch_counts()["decode_nms"] == before + 2
+    cpu = decode_and_nms({k: v.cpu() for k, v in out.items()}, pts.cpu())
+    assert torch.equal(got["bbox"].cpu(), cpu["bbox"])
+    assert int(got["selected"].sum()) > 0
+
+
+def test_decode_nms_wrapper_refuses_what_it_does_not_take():
+    """CPU tensors, other dtypes, non-contiguous inputs and more than
+    MAX_BOXES proposals a scene raise; nothing falls back."""
+    pts, bbox, obj, cls = _decode_case(2, 300, 16, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        keep_mask_cuda(pts, bbox, obj, cls, 0.25, 0.05)
+    with pytest.raises(TypeError, match="float32"):
+        keep_mask_cuda(pts.double(), bbox, obj, cls, 0.25, 0.05)
+    with pytest.raises(TypeError, match="int64"):
+        keep_mask_cuda(pts, bbox, obj, cls.int(), 0.25, 0.05)
+    with pytest.raises(ValueError, match="contiguous"):
+        keep_mask_cuda(pts, bbox.transpose(0, 1).contiguous().transpose(0, 1),
+                       obj, cls, 0.25, 0.05)
+    with pytest.raises(ValueError, match="contiguous"):
+        keep_mask_cuda(pts[:, ::2], bbox, obj, cls, 0.25, 0.05)
+    many = _decode_case(1, 300, MAX_BOXES + 1, 4)
+    with pytest.raises(ValueError, match="at most"):
+        keep_mask_cuda(*many, 0.25, 0.05)
+    with pytest.raises(ValueError, match="shape"):
+        keep_mask_cuda(pts[..., :2].contiguous(), bbox, obj, cls, 0.25, 0.05)
+
+
+def test_decode_and_nms_on_cpu_takes_the_plain_version():
+    """CPU tensors decode through the plain per-scene loop: no launch
+    counted, no library built, the plain version's keep mask."""
+    from nesie_tpu_torch.eval.postprocess import decode_and_nms
+
+    pts, bbox, _, _ = _decode_case(3, 2000, 64, 5)
+    g = torch.Generator().manual_seed(5)
+    out = {"bbox_preds": bbox,
+           "obj_scores": torch.randn(3, 64, 2, generator=g),
+           "sem_scores": torch.randn(3, 64, 4, generator=g),
+           "iou_scores": torch.rand(3, 64, 4, generator=g)}
+    _build.reset_launch_counts()
+    got = decode_and_nms(out, pts)
+    assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+    assert _build._lib is None
+    want, _ = keep_mask_ref(pts, bbox, got["obj_scores"],
+                            got["sem_scores"].argmax(-1), 0.25, 0.05)
+    assert torch.equal(got["selected"], want)
+    assert 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.parametrize("shape", [(7,), (64, 7), (3, 256, 7)])
+def test_box_minmax_is_box_corners_minmax(shape):
+    """The minmax the kernel takes is ``corners_minmax(box_corners())``
+    bit for bit."""
+    g = torch.Generator().manual_seed(len(shape))
+    bbox = torch.cat([torch.randn(*shape[:-1], 3, generator=g) * 3,
+                      torch.rand(*shape[:-1], 3, generator=g) * 2,
+                      torch.rand(*shape[:-1], 1, generator=g) * 7 - 3.5], -1)
+    assert torch.equal(box_minmax(bbox), corners_minmax(box_corners(bbox)))

@@ -357,8 +357,8 @@ def test_host_sync_matches_the_cards_syncs():
         seen = _syncs_seen(lambda: decode_and_nms(out, pts))
         assert _syncs_counted(lambda: decode_and_nms(out, pts)) == (seen,
                                                                      seen)
-    # at least two tests of the NMS loop a scene
-    assert seen >= 4
+    # the decode's kernels make the host wait for nothing
+    assert seen == 0
     # and a semi step (a narrow model) on copies of one state
     state, ulb, batch = _semi_setup(dev)
     states = [copy.deepcopy(state) for _ in range(3)]
