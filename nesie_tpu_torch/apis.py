@@ -31,13 +31,25 @@ from nesie_tpu_torch.nn.detector import (
     init_weights_,
     init_weights_flax_,
 )
-from nesie_tpu_torch.utils import span
+from nesie_tpu_torch.graphs import FpsSplitGraph
+from nesie_tpu_torch.utils import count, get_root_logger, span
 
 
 class Detector:
     """Serves one model. ``cfg.sample_mod="random"`` draws its seed
     indices from the detector's generator (on ``device``, seeded with
-    ``cfg.seed``), one draw a request."""
+    ``cfg.seed``), one draw a request.
+
+    On a card, a request replays CUDA graphs of the forward and of the
+    decode (``graphs.FpsSplitGraph``: split at each FPS launch, which runs
+    eagerly), captured after a request has run eagerly, the first and
+    again whenever the model, its mode or ``cfg`` changes. The graphs read
+    the model's parameters and buffers in place. Each request counts
+    ``detector.graphed`` or ``detector.eager``, the latter with
+    ``eager.<reason>``: ``cpu``, ``sample_mod_random`` (the generator's
+    draw), ``train_mode``, ``shape`` (a cloud other than
+    (1, ``num_points``, 4)), ``warm_up`` (the eager request before a
+    capture) or ``capture_failed`` (logged; the requests stay eager)."""
 
     def __init__(self, model: VoteNetNesie, cfg: InferenceConfig,
                  device: torch.device):
@@ -46,6 +58,8 @@ class Detector:
         self.device = torch.device(device)
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
         self.requests = 0
+        self._graphs = None  # the _Graphs last captured
+        self._failed = None  # the key whose capture failed
 
     @torch.inference_mode()
     def __call__(self, points) -> dict:
@@ -65,20 +79,106 @@ class Detector:
                           else io.load_points_bin(p))
             pts = io.add_height(np.asarray(points, np.float32)[:, :3])
             rng = np.random.default_rng(self.cfg.seed)
-            pts = io.sample_points(pts, self.cfg.num_points, rng)[None]
-        with span("detector.to_device"):
-            pts = torch.from_numpy(np.ascontiguousarray(pts)).to(self.device)
-
-        out = self.model(pts, self.cfg.sample_mod, with_jitter=False,
-                         generator=self.generator)
-        decoded = decode_and_nms(
-            out, pts, nms_thr=self.cfg.nms_thr, score_thr=self.cfg.score_thr,
-            use_iou_for_nms=self.cfg.use_iou_for_nms)
+            pts = np.ascontiguousarray(
+                io.sample_points(pts, self.cfg.num_points, rng)[None])
+        key = (self.model, self.model.training, self.cfg)
+        graphs = self._graphs
+        reason = eager_reason(self.device.type, self.cfg.sample_mod,
+                              self.model.training, pts.shape,
+                              self.cfg.num_points)
+        if reason is None and (graphs is None or graphs.key != key):
+            reason = "capture_failed" if self._failed == key else "warm_up"
+        if reason is None:
+            count("detector.graphed")
+            decoded = graphs.replay(pts)
+        else:
+            count("detector.eager")
+            count(f"eager.{reason}")
+            with span("detector.to_device"):
+                pts = torch.from_numpy(pts).to(self.device)
+            decoded = self._eager(pts)
+            if reason == "warm_up":
+                self._graphs = None  # frees those of another key first
+                self._graphs = _Graphs.capture(self, pts, decoded, key)
+                self._failed = None if self._graphs else key
         with span("detector.fetch"):
             decoded = {k: v[0].cpu().numpy() for k, v in decoded.items()}
         with span("detector.expand"):
             boxes, scores, labels = expand_per_class(decoded)
         return dict(boxes_3d=boxes, scores_3d=scores, labels_3d=labels)
+
+    def _eager(self, pts: torch.Tensor) -> dict:
+        out = self.model(pts, self.cfg.sample_mod, with_jitter=False,
+                         generator=self.generator)
+        return decode_and_nms(
+            out, pts, nms_thr=self.cfg.nms_thr, score_thr=self.cfg.score_thr,
+            use_iou_for_nms=self.cfg.use_iou_for_nms)
+
+
+def eager_reason(device_type: str, sample_mod: str, training: bool,
+                 shape: tuple, num_points: int) -> str | None:
+    """Why a ``Detector`` request runs eagerly whatever graphs it holds,
+    or None."""
+    if device_type != "cuda":
+        return "cpu"
+    if sample_mod == "random":
+        return "sample_mod_random"
+    if training:
+        return "train_mode"
+    if tuple(shape) != (1, num_points, 4):
+        return "shape"
+    return None
+
+
+class _Graphs:
+    """A Detector's graphs of the forward and of the decode, captured for
+    ``key`` (the model, its mode and the cfg), with their static tensors:
+    the input cloud, the forward's results (which the decode reads) and
+    the decode's."""
+
+    def __init__(self, key, points, forward, results, decode, decoded):
+        self.key = key
+        self.points = points
+        self.forward = forward
+        self.results = results
+        self.decode = decode
+        self.decoded = decoded
+
+    @staticmethod
+    def capture(det: Detector, pts: torch.Tensor, eager: dict, key):
+        """The graphs, captured on a copy of ``pts``, whose eager decode
+        was ``eager``; None where capture failed or decoded otherwise."""
+        cfg = det.cfg
+        try:
+            points = pts.clone()
+            forward = FpsSplitGraph(det.device)
+            results = forward.capture(lambda: det.model(
+                points, cfg.sample_mod, with_jitter=False,
+                generator=det.generator))
+            decode = FpsSplitGraph(det.device, pool=forward.pool)
+            decoded = decode.capture(lambda: decode_and_nms(
+                results, points, nms_thr=cfg.nms_thr,
+                score_thr=cfg.score_thr,
+                use_iou_for_nms=cfg.use_iou_for_nms))
+            if not all(torch.equal(decoded[k], eager[k]) for k in eager):
+                raise RuntimeError("the graphs decode otherwise than the "
+                                   "eager request")
+        except Exception as e:  # noqa: BLE001 - requests stay eager
+            get_root_logger().warning(
+                "Detector: CUDA graph capture failed, requests stay eager: "
+                "%s", e, exc_info=True)
+            return None
+        return _Graphs(key, points, forward, results, decode, decoded)
+
+    def replay(self, pts: np.ndarray) -> dict:
+        with span("detector.to_device"):
+            self.points.copy_(torch.from_numpy(pts))
+        b, n = pts.shape[:2]
+        with span("nn.forward", device=True, b=b, n=n):
+            self.forward.replay()
+        with span("postprocess.decode_and_nms", b=b):
+            self.decode.replay()
+        return self.decoded
 
 
 def init_detector(checkpoint=None, checkpoint_dir=None, device="cuda",

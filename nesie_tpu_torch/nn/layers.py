@@ -41,6 +41,22 @@ BN_MOMENTUM = 0.9  # flax: new = momentum * old + (1 - momentum) * batch
 BN_EPS = 1e-5
 GN_EPS = 1e-5  # torch's; flax's default 1e-6 would differ by ~2e-3
 
+_CONSTANTS: dict = {}  # (key, device) -> tensor, see device_constant
+
+
+def device_constant(key, device: torch.device, make) -> torch.Tensor:
+    """``make()``, a CPU tensor, on ``device``: copied once per (``key``,
+    device) and reused, since a copy from the host makes the host wait for
+    the card and a CUDA graph cannot capture one. Kept out of every
+    ``state_dict``, and made outside inference mode, so that a training
+    step may save it for backward after a request made it. Read it only."""
+    device = torch.device(device)
+    const = _CONSTANTS.get((key, device))
+    if const is None:
+        with torch.inference_mode(False):
+            const = _CONSTANTS[(key, device)] = make().to(device)
+    return const
+
 
 def clip_sigmoid(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     """Sigmoid clamped to [eps, 1-eps] (reference

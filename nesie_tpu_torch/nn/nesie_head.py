@@ -15,6 +15,7 @@ from torch import nn
 from nesie_tpu_torch import parallel
 from nesie_tpu_torch.ops import furthest_point_sample
 from .heads import ReliableConvBboxHead, integral_expectation
+from .layers import device_constant
 from .pointnet2 import PointSAModule
 from .side_pooling import SidePooling
 from .vote import VoteModule
@@ -29,8 +30,10 @@ def side2box(aggregated_points, side_offsets, heading_pred, sizes):
     heading_pred (B, P, 2), sizes (3,) -> surface_pred (B, P, 6)
     ``(x1,y1,z1,x2,y2,z2)``, surface_scale (B, P, 6), bbox_pred (B, P, 7).
     """
-    scale = torch.tensor(list(sizes) + list(sizes), dtype=torch.float32,
-                         device=side_offsets.device)
+    sizes = tuple(sizes)
+    scale = device_constant(
+        ("side2box", sizes), side_offsets.device,
+        lambda: torch.tensor(sizes + sizes, dtype=torch.float32))
     scale = scale.expand_as(side_offsets)
     lo = aggregated_points - side_offsets[..., :3] * scale[..., :3]
     hi = aggregated_points + side_offsets[..., 3:] * scale[..., 3:]

@@ -22,12 +22,22 @@ import torch
 from torch import nn
 
 from nesie_tpu_torch.core.boxes import rotate_points_z
-from .layers import BatchNorm, MiniPointNet
-from .side_pooling import _face_indices, interpolate_grid_features
+from .layers import BatchNorm, MiniPointNet, device_constant
+from .side_pooling import face_indices, interpolate_grid_features
 
 # the coordinate axis each face's +-10% copies move along, face order
 # [x-, x+, z+, z-, y-, y+]
 _KEEP_AXIS = (0, 0, 2, 2, 1, 1)
+
+
+def keep_axis_mask(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(6, 1, 3): 1 at each face's ``_KEEP_AXIS``, else 0; made once."""
+    def make():
+        mask = torch.zeros((6, 1, 3), dtype=dtype)
+        mask[torch.arange(6), 0, torch.tensor(_KEEP_AXIS)] = 1.0
+        return mask
+
+    return device_constant(("keep_axis_mask", dtype), device, make)
 
 
 def make_saqe_side_grids(center, size, heading, grid_size: int = 3):
@@ -40,11 +50,9 @@ def make_saqe_side_grids(center, size, heading, grid_size: int = 3):
     gx, gy, gz = torch.meshgrid(step, step, step, indexing="ij")
     local = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
     local = local[None, None] * (size[..., None, :] / 2.0)  # (B, K, g^3, 3)
-    idx = torch.from_numpy(_face_indices(g)).to(center.device)
-    faces = local[:, :, idx].unflatten(2, (6, g * g))  # (B, K, 6, g^2, 3)
-    mask = torch.zeros((6, 1, 3), dtype=center.dtype, device=center.device)
-    mask[torch.arange(6), 0, torch.tensor(_KEEP_AXIS)] = 1.0
-    zero = faces * 0.1 * mask
+    faces = local[:, :, face_indices(g, center.device)]
+    faces = faces.unflatten(2, (6, g * g))  # (B, K, 6, g^2, 3)
+    zero = faces * 0.1 * keep_axis_mask(center.dtype, center.device)
     side = torch.cat([faces - zero, faces, faces + zero], dim=3)
     side = side.flatten(2, 3)  # (B, K, 6 * 3 * g^2, 3)
     return rotate_points_z(side, heading) + center[:, :, None, :]

@@ -14,7 +14,7 @@ from torch import nn
 
 from nesie_tpu_torch.core.boxes import rotate_points_z
 from nesie_tpu_torch.ops import group_points, three_nn
-from .layers import BatchNorm, MiniPointNet
+from .layers import BatchNorm, MiniPointNet, device_constant
 
 
 def _face_indices(g: int) -> np.ndarray:
@@ -27,6 +27,12 @@ def _face_indices(g: int) -> np.ndarray:
     ])
 
 
+def face_indices(g: int, device: torch.device) -> torch.Tensor:
+    """``_face_indices(g)`` as an int64 tensor on ``device``, made once."""
+    return device_constant(("face_indices", g), device,
+                           lambda: torch.from_numpy(_face_indices(g)))
+
+
 def make_box_grids(center, size, heading, grid_size: int):
     """center, size (B, K, 3), heading (B, K) -> bbox_grid (B, K, g^3, 3),
     side_grid (B, K, 6*g^2, 3) in world space."""
@@ -36,7 +42,7 @@ def make_box_grids(center, size, heading, grid_size: int):
     gx, gy, gz = torch.meshgrid(step, step, step, indexing="ij")
     local = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
     local = local[None, None] * (size[..., None, :] / 2.0)  # (B, K, g^3, 3)
-    faces = local[:, :, torch.from_numpy(_face_indices(g)).to(center.device)]
+    faces = local[:, :, face_indices(g, center.device)]
     bbox_grid = rotate_points_z(local, heading) + center[:, :, None, :]
     side_grid = rotate_points_z(faces, heading) + center[:, :, None, :]
     return bbox_grid, side_grid

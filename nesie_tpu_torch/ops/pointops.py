@@ -16,6 +16,9 @@ mailbox exchange (or one CTA for a short row), and so do more rows (the
 B=32 eval forward). The batch names its launch count
 (``ops.fps.fps_launch_name``).
 
+While a ``graphs.FpsSplitGraph`` captures, FPS on a CUDA tensor ends
+the graph being captured, runs eagerly, and opens the next one.
+
 Each call of a kernel is a host span (``utils.span``): ``pointops.fps``,
 ``pointops.ball_query`` and ``pointops.three_nn``, with the shapes
 ``b``, ``n``, ``m`` (and ``k``) as attributes.
@@ -29,6 +32,11 @@ from nesie_tpu_torch.utils import span
 from .ball_query import ball_query_cuda, ball_query_ref
 from .fps import fps_onchip_cuda, fps_ref
 from .three_nn import three_nn_cuda, three_nn_ref
+
+
+# the graphs.FpsSplitGraph capturing, if any: FPS on a CUDA tensor then
+# ends its segment and runs between two graphs
+_CAPTURE = None
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -95,6 +103,15 @@ def furthest_point_sample(xyz: torch.Tensor, num_samples: int,
         return _fps_loop(xyz, num_samples, init.float())
     if _on_cpu(xyz):
         return fps_ref(xyz, num_samples)
+    if _CAPTURE is not None:
+        return _CAPTURE.fps(xyz, num_samples)
+    return onchip_fps(xyz, num_samples)
+
+
+def onchip_fps(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """FPS of contiguous float32 CUDA coordinates: the on-chip kernel
+    (``fps_onchip_cuda``, looked up at each call) in its ``pointops.fps``
+    span."""
     with span("pointops.fps", b=xyz.shape[0], n=xyz.shape[1],
               m=num_samples):
         return fps_onchip_cuda(xyz, num_samples)

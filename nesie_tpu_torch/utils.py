@@ -11,7 +11,9 @@ layer boundary (``semi.teacher``, ``detector.request``, ...);
 ``count(name, n)`` counts an event (``launch.<kernel>``, ``host_sync``).
 Tracing is off by default: ``span`` then hands out one shared null
 context after reading one module global, and records nothing.
-``set_tracing(True)`` (or a ``trace`` block) turns it on; each span then
+``set_tracing(True)`` (or a ``trace`` block) turns it on
+(``spans_suspended`` turns spans off for a block, a CUDA graph's
+capture, and leaves the rest on); each span then
 keeps, in memory, its name, its parent (the innermost span open on its
 thread when it opened), its host start and end
 (``time.perf_counter_ns``), its attributes and the counts made while it
@@ -184,6 +186,19 @@ def set_tracing(on: bool) -> bool:
         _hook_syncs(on)
     _TRACING = on
     return was
+
+
+@contextmanager
+def spans_suspended():
+    """No spans for the block, with tracing left on otherwise (the count
+    of host syncs too): a CUDA graph's capture records no span's CUDA
+    event."""
+    global _TRACING
+    was, _TRACING = _TRACING, False
+    try:
+        yield
+    finally:
+        _TRACING = was
 
 
 def _show_warning(message, category, filename, lineno, file=None,

@@ -332,7 +332,8 @@ def _syncs_counted(fn) -> tuple[int, int]:
 def test_host_sync_matches_the_cards_syncs():
     """``host_sync`` over a request, a B=2 decode and a semi step equals
     the syncs the card's debug mode reports on the same work with tracing
-    off, and each lands in the work's spans."""
+    off, and each lands in the work's spans; a request (replayed graphs)
+    makes exactly five."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
     dev = torch.device("cuda")
@@ -345,7 +346,8 @@ def test_host_sync_matches_the_cards_syncs():
         det(cloud)
 
     seen = _syncs_seen(request)
-    assert _syncs_counted(request) == (seen, seen) and seen >= 6
+    # a replayed request waits only for the copy in and the four copies out
+    assert _syncs_counted(request) == (seen, seen) and seen == 5
     model = VoteNetNesie()
     init_weights_(model, torch.Generator().manual_seed(0))
     model = model.to(dev).eval()
