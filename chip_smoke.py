@@ -8,20 +8,16 @@ file; fails without them. In order:
 
 1. toolchain: the card's name and power limit, torch / CUDA / nvcc
    versions, TF32 off for matmuls and cuDNN;
-2. builds the CUDA kernels from ``nesie_tpu_torch/csrc``;
+2. builds the program's kernel library from ``nesie_tpu_torch/csrc``;
 3. kernel phases: each kernel against its plain PyTorch version on the
    same seeded inputs at the main path's shapes (integer outputs must be
    identical), with both times;
    FPS runs ``fps_onchip.cu`` on both paths (each row held on chip on
    one CTA or across a thread-block cluster, a mailbox exchange across a
    cluster): B > 16 (the eval forward's 32 x 40000 -> 2048 and a ragged
-   17 x 40001, each beside the barrier exchange, ``fps.cu`` and
-   ``fps_cluster.cu`` at C=2) and B <= 16 (the four shapes of requests
-   and training steps, each beside ``fps_cluster.cu`` and the barrier
-   exchange), all held to ``fps_ref`` and to each other. ``fps_cluster.cu``
-   (one cluster per row) and ``fps.cu`` (one block per row: the lab's
-   ``v0`` beside ``v0_current``, the shipped FPS) are second references,
-   off the eval and training paths; the ball query at the eval forward's
+   17 x 40001) and B <= 16 (the four shapes of requests and training
+   steps), each beside the barrier exchange, all held to ``fps_ref`` and
+   to each other; the ball query at the eval forward's
    five shapes (SA1-SA4, the aggregation) at B=32 and at SA1 for B=12;
    three-NN at the side grid,
    the box grid and the two FP shapes, each beside ``torch.topk`` of
@@ -37,10 +33,10 @@ file; fails without them. In order:
    cloud at K5's bench shape (40 distinct points tiled to 8 x 40000 ->
    2048: ties across a cluster's CTAs), at K5's bench shape (uniform) and
    at K6's default (32 x 40000 -> 2048, normal x 3), each beside the
-   shipped ``fps_onchip.cu``, ``fps.cu`` and (K6) ``fps_cluster.cu``;
-   every variant must give ``fps_ref``'s indices and (K6) the shipped
-   FPS's. Then each variant against its plain version, with both times,
-   its plan and its ms a step;
+   shipped ``fps_onchip.cu``; the lab's library is built there, on its
+   first launch; every variant must give ``fps_ref``'s indices and (K6)
+   the shipped FPS's. Then each variant against its plain version, with
+   both times, its plan and its ms a step;
 4. eval path: the flagship VoteNetNesie (seeded random weights, BN
    running stats randomised) runs the batched eval forward at
    B=32 x 40000 x 4 and serves three ``Detector`` requests (B=1), with
@@ -220,6 +216,8 @@ from pathlib import Path
 
 import numpy as np
 
+from nesie_tpu_torch.utils import time_ms
+
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 
@@ -271,11 +269,9 @@ TRAIN_ATOL, TRAIN_RTOL, MIN_COSINE = 1e-4, 1e-3, 0.999
 RELAXED_PL = dict(obj_thr=0.3, cls_thr_base=0.0, cls_thr_scale=0.0,
                   cls_thr_cap=0.0, iou_thr_base=0.3, iou_thr_scale=0.0,
                   iou_thr_cap=0.3)
-# the kernels the eval and training paths must launch; fps.cu and
-# fps_cluster.cu are second references and must read 0 on both
+# the kernels the eval and training paths must launch
 EVAL_KERNELS = ("fps_onchip", "fps_onchip_small", "ball_query", "three_nn")
 TRAIN_KERNELS = ("fps_onchip_small", "ball_query", "three_nn")
-OFF_PATH = ("fps", "fps_cluster")
 # the batched FPS kernel's shapes beyond the eval forward's: (B, N, M)
 ONCHIP_RAGGED = (17, N_POINTS + 1, 2048)
 SEMI_B = 12  # the semi step's batch, for the SA1 ball query
@@ -474,22 +470,6 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
-    import torch
-
-    fn()  # warm-up
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def kernel_phase(name, kernel, plain, reps=10, plain_reps=2):
     """Kernel vs plain version on the same inputs: identical integer
     output required. Returns (max_abs_err, kernel_ms, plain_ms)."""
@@ -626,9 +606,9 @@ def fps_lab_phase():
         raise AssertionError(f"[fps-lab] indices differ from fps_ref or the "
                              f"shipped FPS: {bad}")
     print(f"[fps-lab] launches during the lab path: {launches}; by variant "
-          f"{per_variant}")
-    for name, n in {**per_variant, "fps": launches["fps"],
-                    "fps_cluster": launches["fps_cluster"]}.items():
+          f"{per_variant}; the lab library's nvcc "
+          f"{_build.build_seconds.get('fps_lab')} s")
+    for name, n in per_variant.items():
         if n <= 0:
             raise AssertionError(f"[fps-lab] {name} was never launched")
 
@@ -637,11 +617,9 @@ def fps_lab_phase():
     k5_tag, k6_tag = f"{b5}x{n5}->{m5}", f"{k6_batch}x{n5}->{m5}"
     v0_ms = {k5_tag: k5["v0_current"]["ms"], k6_tag: k6["v0"]["ms"]}
     print(f"[fps-lab] ms by variant: {k5_tag} (mean of {LAB_REPS}, beside "
-          f"the shipped fps_onchip.cu {v0_ms[k5_tag]:.4f} and fps.cu "
-          f"{k5['v0']['ms']:.4f}) | {k6_tag} (least of {LAB_REPS}, beside "
-          f"the shipped fps_onchip.cu {v0_ms[k6_tag]:.4f}, fps.cu "
-          f"{k6['fps_cu']['ms']:.4f} and fps_cluster.cu "
-          f"{k6['fps_cluster']['ms']:.4f})")
+          f"the shipped fps_onchip.cu {v0_ms[k5_tag]:.4f}) | {k6_tag} (least "
+          f"of {LAB_REPS}, beside the shipped fps_onchip.cu "
+          f"{v0_ms[k6_tag]:.4f})")
     entries = []
     for name, v in VARIANTS.items():
         which = "K5" if name in LAB_VARIANTS else "K6"
@@ -1168,16 +1146,12 @@ def scene_agreement(gpu: dict, cpu: dict, keys) -> tuple[float, float]:
 
 def check_launches(counts: dict, path: str, forwards: int | None = None,
                    need=TRAIN_KERNELS) -> None:
-    """Each kernel of ``need`` launched on ``path``, the second references
-    not; with ``forwards``, the ball query and three-NN at their count a
-    forward."""
+    """Each kernel of ``need`` launched on ``path``; with ``forwards``, the
+    ball query and three-NN at their count a forward."""
     for name in need:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  f"{path} path")
-    for name in OFF_PATH:
-        if counts[name] != 0:
-            raise AssertionError(f"{name} was launched on the {path} path")
     if forwards is not None and (
             counts["ball_query"] != SAQE_BQ_PER_FORWARD * forwards
             or counts["three_nn"] != SAQE_3NN_PER_FORWARD * forwards):
@@ -1494,14 +1468,11 @@ def options_kernels(dev, scenes) -> dict:
 
 
 def check_counts(counts: dict, path: str, want: dict) -> None:
-    """Exact launch counts on ``path``; the second references at 0."""
+    """Exact launch counts on ``path``."""
     for name, n in want.items():
         if counts[name] != n:
             raise AssertionError(f"{path}: {counts[name]} {name} launches "
                                  f"(want {n})")
-    for name in OFF_PATH:
-        if counts[name] != 0:
-            raise AssertionError(f"{name} was launched on the {path} path")
 
 
 def semi_steps(dev, model, n_labeled: int, n_unlabeled: int, **step_kw):
@@ -4435,9 +4406,6 @@ def main() -> int:
     from nesie_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_ref
     from nesie_tpu_torch.ops.decode_nms import keep_mask_cuda, keep_mask_ref
     from nesie_tpu_torch.ops.fps import (
-        fps_cluster_cuda,
-        fps_cluster_plan,
-        fps_cuda,
         fps_onchip_cuda,
         fps_onchip_plan,
         fps_ref,
@@ -4469,7 +4437,8 @@ def main() -> int:
     lib_path = _build.build(verbose=True)
     _build.library()
     print(f"[build] {lib_path.relative_to(ROOT)}: "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s)")
+          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          f"{_build.build_seconds.get('kernels')} s)")
 
     # ---- 3. kernel phases ---------------------------------------------
     rng = np.random.default_rng(0)
@@ -4478,11 +4447,6 @@ def main() -> int:
     results, bounds, library = {}, {}, dict.fromkeys(_build.KERNELS)
 
     fps_idx = fps_onchip_cuda(xyz, SA1["m"])
-    results["fps"] = kernel_phase(
-        f"fps B={B} N={N_POINTS} M={SA1['m']} (the lab's v0)",
-        lambda: fps_cuda(xyz, SA1["m"]), lambda: fps_ref(xyz, SA1["m"]),
-        reps=5, plain_reps=1)
-    bounds["fps"] = fps_bound(B, N_POINTS, SA1["m"])
     centers = pointops.gather_points(xyz, fps_idx).contiguous()
     ragged = torch.from_numpy(np.stack([
         make_scene(rng, ONCHIP_RAGGED[1]) for _ in range(ONCHIP_RAGGED[0])
@@ -4494,21 +4458,16 @@ def main() -> int:
         name = f"fps_onchip B={b} N={n} M={m}"
         res = kernel_phase(name, lambda: fps_onchip_cuda(x, m),
                            lambda: fps_ref(x, m), reps=5, plain_reps=1)
-        got = fps_onchip_cuda(x, m)
-        if not (torch.equal(got, fps_cuda(x, m)) and torch.equal(
-                got, fps_onchip_cuda(x, m, exchange="barrier"))):
-            raise AssertionError(f"{name}: fps_onchip.cu's exchanges or "
-                                 "fps.cu differ")
+        if not torch.equal(fps_onchip_cuda(x, m),
+                           fps_onchip_cuda(x, m, exchange="barrier")):
+            raise AssertionError(f"{name}: fps_onchip.cu's exchanges differ")
         barrier_plan = fps_onchip_plan(b, n, exchange="barrier")
         barrier_ms = time_ms(
             lambda: fps_onchip_cuda(x, m, exchange="barrier"), 5)
-        block_ms = time_ms(lambda: fps_cuda(x, m), 3)
-        c2_ms = time_ms(lambda: fps_cluster_cuda(x, m, cluster_size=2), 3)
         b_ms, b_by = fps_bound(b, n, m)
         print(f"[kernel] {name}: plan {plan}; fps_onchip {res[1]:.4f} ms "
               f"({res[1] * 1e3 / (m - 1):.4f} us a step); the barrier "
-              f"exchange {barrier_ms:.4f} ms (plan {barrier_plan}); fps.cu "
-              f"{block_ms:.4f} ms, fps_cluster C=2 {c2_ms:.4f} ms, plain "
+              f"exchange {barrier_ms:.4f} ms (plan {barrier_plan}); plain "
               f"{res[2]:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         if main_shape:
             results["fps_onchip"] = res
@@ -4529,35 +4488,28 @@ def main() -> int:
         assert tuple(x.shape) == (b, n, 3), (what, x.shape)
         plan = fps_onchip_plan(b, n)
         barrier_plan = fps_onchip_plan(b, n, exchange="barrier")
-        cluster_plan = fps_cluster_plan(b, n)
         tag = f"B={b} N={n} M={m}"
         reps = 3 if n > N_POINTS else 5
         res = kernel_phase(f"fps_onchip {tag} ({what})",
                            lambda: fps_onchip_cuda(x, m),
                            lambda: fps_ref(x, m), reps=reps, plain_reps=1)
-        got = fps_onchip_cuda(x, m)
-        if not (torch.equal(got, fps_cluster_cuda(x, m)) and torch.equal(
-                got, fps_onchip_cuda(x, m, exchange="barrier"))):
-            raise AssertionError(f"fps {tag}: fps_onchip.cu, its barrier "
-                                 "exchange and fps_cluster.cu differ")
-        cluster_ms = time_ms(lambda: fps_cluster_cuda(x, m), reps)
+        if not torch.equal(fps_onchip_cuda(x, m),
+                           fps_onchip_cuda(x, m, exchange="barrier")):
+            raise AssertionError(f"fps {tag}: fps_onchip.cu and its barrier "
+                                 "exchange differ")
         barrier_ms = time_ms(lambda: fps_onchip_cuda(x, m, exchange="barrier"),
                              reps)
         b_ms, b_by = fps_bound(b, n, m)
-        k2_ms[tag] = dict(ms=res[1], fps_cluster_ms=cluster_ms,
-                          barrier_ms=barrier_ms, plain_ms=res[2],
+        k2_ms[tag] = dict(ms=res[1], barrier_ms=barrier_ms, plain_ms=res[2],
                           bound_ms=b_ms, bound_by=b_by, plan=plan)
         print(f"[kernel] fps {tag} ({what}): fps_onchip {res[1]:.4f} ms "
-              f"(plan {plan}); fps_cluster.cu {cluster_ms:.4f} ms (plan "
-              f"{cluster_plan}); the barrier exchange {barrier_ms:.4f} ms "
+              f"(plan {plan}); the barrier exchange {barrier_ms:.4f} ms "
               f"(plan {barrier_plan}); plain {res[2]:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}); identical to fps_ref and to each "
               "other")
         if i == K2_MAIN:
             results["fps_onchip_small"] = res
             bounds["fps_onchip_small"] = (b_ms, b_by)
-            results["fps_cluster"] = (res[0], cluster_ms, res[2])
-            bounds["fps_cluster"] = (b_ms, b_by)
     del big, vote_like
 
     bq_shapes = eval_shapes(xyz, centers)
@@ -4804,10 +4756,6 @@ def main() -> int:
                        "nesie_tpu/ops/pallas_fps.py:73"),
         "fps_onchip_small": ("nesie_tpu_torch/csrc/fps_onchip.cu",
                              "nesie_tpu/ops/pallas_fps.py:25"),
-        "fps": ("nesie_tpu_torch/csrc/fps.cu",
-                "nesie_tpu/ops/pallas_fps.py:73"),
-        "fps_cluster": ("nesie_tpu_torch/csrc/fps_cluster.cu",
-                        "nesie_tpu/ops/pallas_fps.py:25"),
         "ball_query": ("nesie_tpu_torch/csrc/ball_query.cu",
                        "nesie_tpu/ops/pallas_ball_query.py:39"),
         "three_nn": ("nesie_tpu_torch/csrc/three_nn.cu",
@@ -4825,20 +4773,9 @@ def main() -> int:
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                      bound_by=b_by, library_ms=library[name])
-        if name == "fps":
-            entry["role"] = ("the FPS lab's v0 baseline and a second "
-                             "reference for fps_onchip; off the eval and "
-                             "training paths")
-        if name == "fps_cluster":
-            entry["role"] = ("the first port of the single-row kernel, a "
-                             "second reference for fps_onchip at B <= 16; "
-                             "off the eval and training paths")
         if name == "fps_onchip_small":
             entry["role"] = "fps_onchip.cu at B <= 16 (K2's regime)"
-        if name in ("fps_onchip_small", "fps_cluster"):
-            entry["by_shape"] = {
-                tag: r["ms" if name == "fps_onchip_small" else
-                       "fps_cluster_ms"] for tag, r in k2_ms.items()}
+            entry["by_shape"] = {tag: r["ms"] for tag, r in k2_ms.items()}
         if name == "ball_query":
             entry["by_shape"] = bq_ms
         if name == "three_nn":

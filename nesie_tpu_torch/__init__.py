@@ -2,7 +2,7 @@
 
 Mirrors the module tree of ``nesie_tpu``: the flagship detector's eval
 path and its supervised and teacher-student training steps. Plain tensor
-code is PyTorch; FPS (a block-per-row and a cluster-per-row kernel), ball
+code is PyTorch; FPS (each row held on chip on one CTA or a cluster), ball
 query and three-NN are CUDA kernels written for ``sm_90a`` (``csrc/``),
 each with a plain PyTorch version beside it that CPU tensors take. The
 package never imports jax.

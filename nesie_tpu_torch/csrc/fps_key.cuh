@@ -1,5 +1,5 @@
-// The (value, index) key the cluster FPS kernels reduce, shared by
-// fps_cluster.cu and fps_onchip.cu.
+// The (value, index) key the on-chip FPS kernel (fps_onchip.cu) reduces
+// across the threads and CTAs of a row.
 //
 // A pair packs into one 64-bit key whose unsigned order is fps_ref's tie
 // rule: larger value first, then lower index. Distances are >= 0, so

@@ -1,12 +1,17 @@
 """Build and bind the port's CUDA kernels.
 
-The sources under ``nesie_tpu_torch/csrc/`` are compiled on first use, one
-``nvcc`` process per source, all started together, and linked into one
-shared library with a plain C interface, loaded with ``ctypes``. The
-library lands in ``build/nesie_tpu_torch/`` at the root of the checkout,
-named by a hash of the sources, so an edit rebuilds it and an unchanged
-tree reuses it. Each C entry point takes device pointers, sizes
-and a stream, launches on that stream and returns ``cudaGetLastError()``.
+The sources under ``nesie_tpu_torch/csrc/`` make two shared libraries
+(``LIBRARIES``): ``kernels``, the program's, which every eval, training
+and serving path loads through ``library()``, and ``fps_lab``, the FPS
+step-variant lab's (``ops.fps_variants``), built only when the lab is
+called. Each is compiled on first use, one ``nvcc`` process per source,
+all started together, and linked into a library with a plain C
+interface, loaded with ``ctypes``. A library lands in
+``build/nesie_tpu_torch/`` at the root of the checkout, named by a hash
+of its own sources, the headers and the flags, so an edit rebuilds the
+libraries it reaches and an unchanged tree reuses them. Each C entry
+point takes device pointers, sizes and a stream, launches on that stream
+and returns ``cudaGetLastError()``.
 
 Every wrapper counts its launches as ``launch.<kernel>`` in the program's
 counts (``utils.count``): one per kernel launch, and nowhere else, so a
@@ -34,19 +39,23 @@ _NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
+# each library and the csrc/*.cu it is built from; a source is in one
+LIBRARIES = {
+    "kernels": ("fps_onchip.cu", "ball_query.cu", "three_nn.cu",
+                "decode_nms.cu"),
+    "fps_lab": ("fps_variants.cu",),
+}
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # name: argtypes (every entry point returns a cudaError_t as int)
-    "nesie_fps": [_P, _I, _I, _I, _P, _P, _P],
-    "nesie_fps_cluster": [_P, _I, _I, _I, _I, _P, _P],
-    "nesie_fps_cluster_plan": [_I, _I, _I, _P],
+    # the program library's entry points: argtypes (every entry point
+    # returns a cudaError_t as int)
     "nesie_fps_onchip": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "nesie_fps_onchip_plan": [_I, _I, _I, _I, _I, _I, _P],
     "nesie_fps_onchip_timed": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "nesie_ball_query": [_P, _P, _I, _I, _I, _I, _F, _F, _P, _P],
     "nesie_three_nn": [_P, _P, _I, _I, _I, _I, _P, _P],
     "nesie_three_nn_plan": [_I, _I, _I, _P],
-    "nesie_fps_variant": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "nesie_decode_nms_counts": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     "nesie_decode_nms_keep": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
 }
@@ -54,13 +63,13 @@ _SIGNATURES = {
 # fps_onchip counts the batches of more than 16 rows, fps_onchip_small
 # the others (ops.fps.fps_launch_name), fps_onchip_timed the
 # instrumented kernel's launches; decode_nms counts both launches of the
-# eval decode's keep mask (point counts, then NMS)
-KERNELS = ("fps", "fps_cluster", "fps_onchip", "fps_onchip_small",
-           "fps_onchip_timed", "ball_query", "three_nn", "fps_variant",
-           "decode_nms")
+# eval decode's keep mask (point counts, then NMS); fps_variant the FPS
+# lab's (ops.fps_variants)
+KERNELS = ("fps_onchip", "fps_onchip_small", "fps_onchip_timed",
+           "ball_query", "three_nn", "fps_variant", "decode_nms")
 
-_lib = None
-build_seconds = None  # wall time of the nvcc build in this process, if any
+_lib = None  # the program's library, once loaded
+build_seconds = {}  # wall time of each library's nvcc build in this process
 
 
 def reset_launch_counts() -> None:
@@ -85,17 +94,17 @@ def _nvcc() -> str:
                        "port's CUDA kernels cannot be built")
 
 
-def sources() -> list[Path]:
-    return sorted(_CSRC.glob("*.cu"))
+def sources(lib: str = "kernels") -> list[Path]:
+    return [_CSRC / name for name in LIBRARIES[lib]]
 
 
-def library_path() -> Path:
+def library_path(lib: str = "kernels") -> Path:
     digest = hashlib.sha256()
-    for src in sorted(_CSRC.glob("*.cu*")):  # the .cu files and headers
+    for src in sorted([*sources(lib), *_CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"libnesie_kernels_{digest.hexdigest()[:16]}.so"
+    return _BUILD_DIR / f"libnesie_{lib}_{digest.hexdigest()[:16]}.so"
 
 
 def _run(cmd: list[str]) -> subprocess.Popen:
@@ -117,11 +126,10 @@ def _wait(procs: list[tuple[list[str], subprocess.Popen]],
         raise RuntimeError("\n".join(failed))
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless a library of the same sources exists:
-    one ``nvcc -c`` per source in parallel, then one link."""
-    global build_seconds
-    out = library_path()
+def build(verbose: bool = False, lib: str = "kernels") -> Path:
+    """Compile library ``lib`` unless one of the same sources exists: one
+    ``nvcc -c`` per source in parallel, then one link."""
+    out = library_path(lib)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -129,7 +137,7 @@ def build(verbose: bool = False) -> Path:
     tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
     compiles, objects = [], []
-    for src in sources():
+    for src in sources(lib):
         obj = out.parent / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         if verbose:
@@ -144,32 +152,41 @@ def build(verbose: bool = False) -> Path:
     for obj in objects:
         obj.unlink()
     os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
+    build_seconds[lib] = time.perf_counter() - t0
     return out
 
 
+def load(lib: str, signatures: dict) -> ctypes.CDLL:
+    """Library ``lib``, built unless it exists, with the argtypes of
+    ``signatures`` (entry point: argtypes) set and an int result."""
+    handle = ctypes.CDLL(str(build(lib=lib)))
+    for name, argtypes in signatures.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The program's kernel library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = load("kernels", _SIGNATURES)
     return _lib
 
 
-def launch(kernel: str, entry: str, *args, device: torch.device) -> None:
-    """Call one C entry point with ``device`` (the inputs' card) current,
-    on that card's current stream; raise on a launch error and count the
-    launch. A process may hold tensors on a card other than its current
-    one (a rank of a data-parallel run), and the kernel must land on the
-    card its pointers belong to."""
+def launch(kernel: str, entry: str, *args, device: torch.device,
+           lib: ctypes.CDLL | None = None) -> None:
+    """Call one C entry point of ``lib`` (default: the program's library)
+    with ``device`` (the inputs' card) current, on that card's current
+    stream; raise on a launch error and count the launch. A process may
+    hold tensors on a card other than its current one (a rank of a
+    data-parallel run), and the kernel must land on the card its pointers
+    belong to."""
+    fn = getattr(library() if lib is None else lib, entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(library(), entry)(*args, stream)
+        err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     utils.count(f"launch.{kernel}")

@@ -5,11 +5,7 @@ Counterpart of ``nesie_tpu/ops/pallas_fps.py``, whose two Pallas kernels
 (the batched ``_fps_batched_kernel`` and the single-row ``_fps_kernel``)
 both have ``csrc/fps_onchip.cu`` as their CUDA kernel: each row held on
 chip on one CTA or across a thread-block cluster, with the exchange of a
-step's candidates chosen by its plan. Two earlier kernels stay as second
-references, off the eval and training paths: ``csrc/fps_cluster.cu`` (one
-cluster per row, the first port of ``_fps_kernel``) and ``csrc/fps.cu``
-(one block per row, the first port of the batched kernel and the FPS
-lab's ``v0`` baseline). ``fps_ref`` is the plain version of all three.
+step's candidates chosen by its plan. ``fps_ref`` is its plain version.
 ``ops.pointops.furthest_point_sample`` picks between the plain version
 and ``fps_onchip``.
 """
@@ -52,55 +48,9 @@ def fps_steps(xyz: torch.Tensor, num_samples: int, select) -> torch.Tensor:
     return out
 
 
-def fps_cuda(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
-    """Launch ``csrc/fps.cu``: one block of 1024 threads per batch row."""
-    _build.check_cuda_input("xyz", xyz)
-    B, N, _ = xyz.shape
-    _check_samples(N, num_samples)
-    out = torch.empty((B, num_samples), dtype=torch.int32, device=xyz.device)
-    if B == 0:
-        return out
-    dist = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
-    _build.launch("fps", "nesie_fps", xyz.data_ptr(), B, N, num_samples,
-                  dist.data_ptr(), out.data_ptr(), device=xyz.device)
-    return out
-
-
 def _check_samples(N: int, num_samples: int) -> None:
     if not 1 <= num_samples <= N:
         raise ValueError(f"num_samples={num_samples} must be in [1, N={N}]")
-
-
-def fps_cluster_plan(batch: int, n: int, cluster_size: int = 0) -> dict:
-    """The launch plan ``fps_cluster_cuda`` takes for (batch, n): cluster
-    size, threads per CTA, dynamic shared memory bytes, and whether the
-    coordinates sit in shared memory. Raises where no plan fits."""
-    plan = (ctypes.c_int * 4)()
-    err = _build.library().nesie_fps_cluster_plan(
-        batch, n, cluster_size, ctypes.addressof(plan))
-    if err != 0:
-        raise RuntimeError(f"fps_cluster: no launch plan for B={batch}, "
-                           f"N={n}, cluster_size={cluster_size} "
-                           f"(cudaError {err})")
-    return dict(cluster=plan[0], threads=plan[1], smem_bytes=plan[2],
-                coords_in_smem=bool(plan[3]))
-
-
-def fps_cluster_cuda(xyz: torch.Tensor, num_samples: int,
-                     cluster_size: int = 0) -> torch.Tensor:
-    """Launch ``csrc/fps_cluster.cu``: one thread-block cluster per batch
-    row. ``cluster_size`` 0 lets the kernel's plan choose (see
-    ``fps_cluster_plan``); 1 to 16 asks for that size."""
-    _build.check_cuda_input("xyz", xyz)
-    B, N, _ = xyz.shape
-    _check_samples(N, num_samples)
-    out = torch.empty((B, num_samples), dtype=torch.int32, device=xyz.device)
-    if B == 0:
-        return out
-    _build.launch("fps_cluster", "nesie_fps_cluster", xyz.data_ptr(), B, N,
-                  num_samples, cluster_size, out.data_ptr(),
-                  device=xyz.device)
-    return out
 
 
 # the exchanges of csrc/fps_onchip.cu, by their number in its C interface

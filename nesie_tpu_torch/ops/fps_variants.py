@@ -22,11 +22,14 @@ note of ``csrc/fps_variants.cu`` says how):
   unroll 4 (``v5``): the step loop unrolled.
 
 A launch takes the plan of the shipped FPS for the same shape
-(``fps_variant_plan``). Nothing on the eval or training path calls this
-module: their FPS is ``ops.pointops.furthest_point_sample``.
+(``fps_variant_plan``). The kernels live in the lab's own library
+(``_build.LIBRARIES["fps_lab"]``), built the first time a variant is
+launched. Nothing on the eval or training path calls this module: their
+FPS is ``ops.pointops.furthest_point_sample``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -65,6 +68,19 @@ EXPERIMENT_VARIANTS = {
 # the order is the kernel's variant id (the switch in csrc/fps_variants.cu)
 VARIANTS = {**LAB_VARIANTS, **EXPERIMENT_VARIANTS}
 _IDS = {name: i for i, name in enumerate(VARIANTS)}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"nesie_fps_variant": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                                     _P]}
+_lib = None  # the lab's library, once loaded
+
+
+def library():
+    """The lab's kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        _lib = _build.load("fps_lab", _SIGNATURES)
+    return _lib
 
 
 def reset_launch_counts() -> None:
@@ -119,7 +135,7 @@ def fps_variant_cuda(xyz: torch.Tensor, num_samples: int,
                   xyz.data_ptr(), B, N, num_samples, plan["cluster"],
                   plan["threads"], plan["points_per_thread"],
                   _exchange_id(plan["exchange"]), out.data_ptr(),
-                  device=xyz.device)
+                  device=xyz.device, lib=library())
     utils.count(f"fps_variant.{name}")
     return out
 

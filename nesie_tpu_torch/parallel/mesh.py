@@ -124,8 +124,8 @@ def check_num_devices(num_devices: int | None,
 
 
 def _build_kernels_once(local_rank: int) -> None:
-    """The kernels are built by local rank 0 while the others wait, so that
-    one ``nvcc`` runs a host."""
+    """The program's kernel library is built by local rank 0 while the
+    others wait, so that one ``nvcc`` runs a host."""
     from nesie_tpu_torch.ops import _build
 
     if local_rank == 0:

@@ -13,8 +13,9 @@ from them as the forward does: SA2-SA4 query prefixes of the centers
 request). For each: the kernel must give ``ball_query_ref``'s indices; prints
 one JSON line with the mean device time of 10 launches (CUDA events), the
 (center, point) pairs tested up to each center's K-th hit, and the card's
-name. Only ``ops`` entry points that every version of the port has are
-called, so the script also times an older checkout's kernel:
+name. Besides ``utils.time_ms``, only ``ops`` entry points that every
+version of the port has are called, so the script also times the kernel
+of another checkout that has ``utils.time_ms``:
 ``PYTHONPATH=<checkout> python3 <this file>``.
 """
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 from nesie_tpu_torch.data.synthetic import make_scene
 from nesie_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_ref
 from nesie_tpu_torch.ops.pointops import furthest_point_sample, gather_points
-from nesie_tpu_torch.tools.fps_cluster_sweep import time_ms
+from nesie_tpu_torch.utils import time_ms
 
 B, N_POINTS = 32, 40000
 BATCHES = (32, 12, 1)  # the eval forward, the semi step, a request

@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """FPS step-body experiments: the variants of the TPU study
 ``tools/fps_experiments.py`` as CUDA kernels on the shipped FPS's on-chip
-frame, beside the shipped FPS, ``fps.cu`` and ``fps_cluster.cu`` on the
-same input.
+frame, beside the shipped FPS on the same input.
 
     python3 -m nesie_tpu_torch.tools.fps_experiments [--batch 32]
         [--n 40000] [--m 2048] [--rows 2] [--iters 5]
@@ -17,14 +16,11 @@ input is ``default_rng(0).normal(size=(batch, n, 3)) * 3``. For each
 variant it prints the least time of one call over ``--iters`` calls
 (CUDA events), the ms a step, ``exact_vs_xla`` (indices identical to
 ``fps_ref``) and ``exact_vs_v0`` (identical to the shipped FPS) and, for
-a variant, its plan (``ops.fps_variants.fps_variant_plan``); then one line
-each for the two second references, ``fps_cu`` (``csrc/fps.cu``: one
-block of 1024 threads a row, the port's first FPS) and ``fps_cluster``
-(``csrc/fps_cluster.cu``: one cluster a row, streaming from L2). ``--rows``
+a variant, its plan (``ops.fps_variants.fps_variant_plan``). ``--rows``
 is the rows a CTA or cluster carries where a variant interleaves rows
 (``v3``, which needs 2); the other variants carry one row, as the shipped
-FPS does. ``--device cpu`` runs the plain versions (no second references)
-with host-clock times.
+FPS does. ``--device cpu`` runs the plain versions with host-clock
+times.
 """
 from __future__ import annotations
 
@@ -37,7 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from nesie_tpu_torch.ops.fps import fps_cluster_cuda, fps_cuda, fps_ref
+from nesie_tpu_torch.ops.fps import fps_ref
 from nesie_tpu_torch.ops.fps_variants import (
     EXPERIMENT_VARIANTS,
     VARIANTS,
@@ -77,8 +73,7 @@ def run(batch: int = 32, n: int = 40000, m: int = 2048, rows: int = 2,
         iters: int = 5, variants=DEFAULT_VARIANTS.split(","),
         device: str = "cuda") -> dict:
     """Check and time each variant; returns {name: {ms, ms_per_step,
-    exact_vs_xla, exact_vs_v0[, plan]}}, with ``fps_cu`` and
-    ``fps_cluster`` entries on the card."""
+    exact_vs_xla, exact_vs_v0[, plan]}}."""
     xyz = make_cloud(batch, n, device)
     on_card = device != "cpu"
     if "v3" in variants and rows != 2:
@@ -88,10 +83,6 @@ def run(batch: int = 32, n: int = 40000, m: int = 2048, rows: int = 2,
            "v0": lambda: furthest_point_sample(xyz, m)}
     for name in VARIANTS:  # the lab's variants too, when asked for
         fns[name] = lambda name=name: run_variant(xyz, m, name)
-    if on_card:
-        fns["fps_cu"] = lambda: fps_cuda(xyz, m)
-        fns["fps_cluster"] = lambda: fps_cluster_cuda(xyz, m)
-        variants = [*variants, "fps_cu", "fps_cluster"]
     unknown = [v for v in variants if v not in fns]
     if unknown:
         raise ValueError(f"no variant {unknown} on {device}")

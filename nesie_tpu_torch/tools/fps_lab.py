@@ -14,9 +14,7 @@ versions instead, and is the only way to the CPU. ``bench`` needs the
 card: at B=8, N=40000, M=2048, uniform in [0, 1)^3, it checks and times
 ``v0_current``, the shipped FPS (the dispatch
 ``ops.pointops.furthest_point_sample``, i.e. ``csrc/fps_onchip.cu``),
-``v0``, ``csrc/fps.cu`` (one block of 1024 threads a row, the port's first
-FPS, kept as a second reference), each variant and ``v0_current`` again
-at the end, and prints one JSON
+each variant and ``v0_current`` again at the end, and prints one JSON
 line each: ``{variant, ms, exact, us_per_step}`` and, for a variant, its
 plan (``ops.fps_variants.fps_variant_plan``) and its time over
 ``v0_current``'s; ``ms`` is the mean of a launch from CUDA events.
@@ -42,7 +40,7 @@ import numpy as np
 import torch
 
 from nesie_tpu_torch.ops import _build
-from nesie_tpu_torch.ops.fps import fps_cuda, fps_ref
+from nesie_tpu_torch.ops.fps import fps_ref
 from nesie_tpu_torch.ops.fps_variants import (
     LAB_VARIANTS,
     VARIANTS,
@@ -52,7 +50,7 @@ from nesie_tpu_torch.ops.fps_variants import (
     plan_tag,
 )
 from nesie_tpu_torch.ops.pointops import furthest_point_sample
-from nesie_tpu_torch.tools.fps_cluster_sweep import time_ms
+from nesie_tpu_torch.utils import time_ms
 
 CHECK_SHAPE = (3, 600, 37)    # B, N, M of the TPU lab's check
 BENCH_SHAPE = (8, 40000, 2048)  # and of its bench
@@ -98,14 +96,13 @@ def check(device: str = "cuda", variants=LAB_VARIANTS, shape=CHECK_SHAPE,
 
 
 def bench(variants=LAB_VARIANTS, reps: int = 10) -> list[dict]:
-    """Check and time the shipped FPS, ``fps.cu``, each variant and the
-    shipped FPS again (``v0_current_end``: the drift over the run) at the
+    """Check and time the shipped FPS, each variant and the shipped FPS
+    again (``v0_current_end``: the drift over the run) at the
     bench shape on the card; one dict (and one printed line) each."""
     xyz = bench_cloud("cuda")
     b, n, m = BENCH_SHAPE
     want = fps_ref(xyz, m)
-    cand = {"v0_current": lambda: furthest_point_sample(xyz, m),
-            "v0": lambda: fps_cuda(xyz, m)}
+    cand = {"v0_current": lambda: furthest_point_sample(xyz, m)}
     cand.update({name: (lambda name=name: fps_variant_cuda(xyz, m, name))
                  for name in variants})
     cand["v0_current_end"] = cand["v0_current"]  # the drift over the run
@@ -145,8 +142,8 @@ def sass() -> dict:
     source's compile time. Needs nvcc and cuobjdump, not the card."""
     nvcc = _build._nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
-    srcs = [p for p in _build.sources()
-            if p.name in ("fps_variants.cu", "fps_onchip.cu")]
+    srcs = [_build._CSRC / name
+            for name in ("fps_variants.cu", "fps_onchip.cu")]
     out = {"compile_s": {}, "kernels": {}}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()

@@ -1,13 +1,12 @@
 #!/usr/bin/env python3
-"""Time the on-chip FPS kernel by plan against fps.cu and fps_cluster.cu.
+"""Time the on-chip FPS kernel by plan.
 
     python3 -m nesie_tpu_torch.tools.fps_onchip_sweep [--quick]
         [--shapes 0,1,...]
 
 Needs one CUDA card and nvcc. For each (B, N, M) below (or those
-``--shapes`` picks by position), prints ``fps.cu``'s and
-``fps_cluster.cu``'s times on the input (the plan's own cluster size, and
-C=2 where B > 16), then one JSON line per plan of ``fps_onchip_cuda``
+``--shapes`` picks by position), prints one JSON line per plan of
+``fps_onchip_cuda``
 (each exchange or the plan's own "auto"; cluster size 1-16 or the plan's
 own "0"; a thread cap of 64, 128, 256 or 512 or the default "0";
 requests that give a plan already timed are skipped), with its mean time
@@ -26,14 +25,11 @@ import torch
 
 from nesie_tpu_torch.ops.fps import (
     EXCHANGES,
-    fps_cluster_cuda,
-    fps_cluster_plan,
-    fps_cuda,
     fps_onchip_cuda,
     fps_onchip_plan,
     fps_ref,
 )
-from nesie_tpu_torch.tools.fps_cluster_sweep import time_ms
+from nesie_tpu_torch.utils import time_ms
 
 # the eval forward's SA1, a ragged B > 16 row, then the B <= 16 shapes:
 # semi-step SA1, a request, the vote-mode aggregation, 200000-point rows
@@ -61,15 +57,6 @@ def main() -> int:
         xyz = (torch.rand((b, n, 3), generator=gen, device=dev)
                * torch.tensor([6.0, 6.0, 3.0], device=dev)).contiguous()
         want = fps_ref(xyz, m)
-        if not torch.equal(fps_cuda(xyz, m), want):
-            raise AssertionError(f"B={b} N={n}: fps.cu differs from fps_ref")
-        base = dict(b=b, n=n, m=m, fps_cu_ms=time_ms(lambda: fps_cuda(xyz, m)),
-                    fps_cluster_ms=time_ms(lambda: fps_cluster_cuda(xyz, m)),
-                    fps_cluster_plan=fps_cluster_plan(b, n))
-        if b > 16:
-            base["fps_cluster_c2_ms"] = time_ms(
-                lambda: fps_cluster_cuda(xyz, m, cluster_size=2))
-        print(json.dumps(base))
         requests = ([(0, 0, "auto")] if args.quick else
                     [(c, t, x) for x in EXCHANGES for c in CLUSTERS
                      for t in THREADS])

@@ -38,9 +38,7 @@ from nesie_tpu_torch.train.step import make_supervised_train_step
 
 # kernel-name patterns, first match wins
 GROUPS = (
-    ("fps_cluster (CUDA, ours)", r"fps_cluster_kernel"),
     ("fps_onchip (CUDA, ours)", r"fps_onchip"),
-    ("fps (CUDA, ours)", r"fps_kernel"),
     ("ball_query (CUDA, ours)", r"ball_query"),
     ("three_nn (CUDA, ours)", r"three_nn_kernel"),
     ("GEMM (cuBLAS; fp32, bf16)", r"gemm|sgemm|cutlass|Kernel2|ampere|sm90"),

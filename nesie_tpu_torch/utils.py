@@ -323,6 +323,23 @@ def no_card(device, tool: str) -> bool:
     return True
 
 
+def time_ms(fn, reps: int = 3) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls after one warm-up
+    call (CUDA events on the current stream); needs the card."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def collect_env():
     """Environment fingerprint (reference utils/collect_env.py): python,
     torch, its CUDA and the card."""

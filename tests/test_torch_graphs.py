@@ -214,11 +214,11 @@ def cuda():
 
 
 def _detector(dev, variant):
-    """``saqe``, ``nesie`` (one FPS a forward, SA1's) or ``nesie_fps``
+    """``saqe``, ``nesie`` (one FPS a forward, SA1's) or ``nesie_five_fps``
     (the real FPS in SA2-SA4 and the head's seed sampling: five)."""
     det = init_detector(device=dev, head="saqe" if variant == "saqe"
                         else "nesie")
-    if variant == "nesie_fps":
+    if variant == "nesie_five_fps":
         for sa in det.model.backbone.SA_modules:
             sa.input_fps_ordered = False
         det.model.bbox_head.seed_fps_prefix_opt = False
@@ -241,7 +241,7 @@ def _made(before: dict, prefix: str) -> dict:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tracing", ["off", "on", "capture_on"])
-@pytest.mark.parametrize("variant", ["saqe", "nesie", "nesie_fps"])
+@pytest.mark.parametrize("variant", ["saqe", "nesie", "nesie_five_fps"])
 def test_graphed_detector_matches_eager(cuda, monkeypatch, variant, tracing):
     """Every replayed request returns the eager steps' answer, and its
     decode before the expansion, bit for bit; tracing off, on after the
@@ -298,7 +298,7 @@ def _request_trace(det, cloud, graphed: bool):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant", ["saqe", "nesie", "nesie_fps"])
+@pytest.mark.parametrize("variant", ["saqe", "nesie", "nesie_five_fps"])
 def test_replayed_request_counts_spans_and_launches(cuda, variant):
     """A replayed request counts ``detector.graphed`` once, opens one
     ``nn.forward`` span with device time, and makes the eager steps'
@@ -316,7 +316,7 @@ def test_replayed_request_counts_spans_and_launches(cuda, variant):
     names = [r["name"] for r in recs]
     fps = names.count("pointops.fps")
     assert fps == [r["name"] for r in want_recs].count("pointops.fps")
-    assert fps == (5 if variant == "nesie_fps" else 1)
+    assert fps == (5 if variant == "nesie_five_fps" else 1)
     forward = [r for r in recs if r["name"] == "nn.forward"]
     assert len(forward) == 1 and forward[0]["device_ms"] > 0
     top = [r for r in recs if r["parent"] is None]

@@ -14,9 +14,6 @@ from nesie_tpu_torch.core.boxes import box_corners, corners_minmax
 from nesie_tpu_torch.ops import _build
 from nesie_tpu_torch.ops.ball_query import ball_query_cuda, ball_query_ref
 from nesie_tpu_torch.ops.fps import (
-    fps_cluster_cuda,
-    fps_cluster_plan,
-    fps_cuda,
     fps_onchip_cuda,
     fps_onchip_plan,
     fps_ref,
@@ -53,75 +50,6 @@ def _uniform(shape, seed, scale=1.0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,n,m", [(2, 1000, 128), (3, 4097, 500), (1, 64, 64)])
-def test_fps_kernel_matches_plain(cuda, b, n, m):
-    xyz = _uniform((b, n, 3), seed=n).to(cuda)
-    before = _build.launch_counts()["fps"]
-    got = fps_cuda(xyz, m)
-    torch.cuda.synchronize()
-    assert _build.launch_counts()["fps"] == before + 1
-    assert torch.equal(got, fps_ref(xyz, m))
-
-
-@pytest.mark.gpu
-def test_fps_kernel_lattice_ties(cuda):
-    g = torch.arange(8.0)
-    xyz = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
-    xyz = xyz.reshape(1, -1, 3).contiguous().to(cuda)
-    assert torch.equal(fps_cuda(xyz, 200), fps_ref(xyz, 200))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,n,m", [
-    (1, 40000, 2048),    # a Detector request
-    (12, 40000, 2048),   # semi-step SA1
-    (12, 1024, 256),     # vote-mode aggregation FPS
-    (2, 200000, 2048),   # the single-row regime of the TPU kernel
-])
-def test_fps_cluster_kernel_matches_plain(cuda, b, n, m):
-    xyz = _uniform((b, n, 3), seed=n + b, scale=5.0).to(cuda)
-    before = _build.launch_counts()["fps_cluster"]
-    got = fps_cluster_cuda(xyz, m)
-    torch.cuda.synchronize()
-    assert _build.launch_counts()["fps_cluster"] == before + 1
-    assert torch.equal(got, fps_ref(xyz, m))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
-def test_fps_cluster_sizes_and_ragged_slices(cuda, cluster):
-    """N = 5003 is a multiple of no cluster size and of no block size, and
-    at 16 the last slices are short."""
-    xyz = _uniform((3, 5003, 3), seed=cluster).to(cuda)
-    plan = fps_cluster_plan(3, 5003, cluster)
-    assert plan["cluster"] == cluster
-    got = fps_cluster_cuda(xyz, 700, cluster_size=cluster)
-    torch.cuda.synchronize()
-    assert torch.equal(got, fps_ref(xyz, 700))
-
-
-@pytest.mark.gpu
-def test_fps_cluster_coordinates_from_l2(cuda):
-    """Slices too large for their coordinates in shared memory keep only
-    the distances there."""
-    xyz = _uniform((1, 200000, 3), seed=11).to(cuda)
-    assert not fps_cluster_plan(1, 200000, 8)["coords_in_smem"]
-    got = fps_cluster_cuda(xyz, 300, cluster_size=8)
-    torch.cuda.synchronize()
-    assert torch.equal(got, fps_ref(xyz, 300))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("cluster", [0, 4])
-def test_fps_cluster_lattice_ties(cuda, cluster):
-    g = torch.arange(20.0)
-    xyz = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
-    xyz = xyz.reshape(1, -1, 3).contiguous().to(cuda)  # 8000 points
-    got = fps_cluster_cuda(xyz, 500, cluster_size=cluster)
-    assert torch.equal(got, fps_ref(xyz, 500))
-
-
-@pytest.mark.gpu
 def test_fps_dispatch_by_batch(cuda):
     from nesie_tpu_torch.ops import furthest_point_sample
 
@@ -132,8 +60,6 @@ def test_fps_dispatch_by_batch(cuda):
     after = _build.launch_counts()
     assert after["fps_onchip_small"] == counts["fps_onchip_small"] + 1
     assert after["fps_onchip"] == counts["fps_onchip"] + 1
-    assert after["fps_cluster"] == counts["fps_cluster"]
-    assert after["fps"] == counts["fps"]
 
 
 def _onchip_cases():
@@ -157,7 +83,6 @@ def test_fps_onchip_kernel_matches_plain(cuda, b, n, m, cluster):
     torch.cuda.synchronize()
     assert _build.launch_counts()["fps_onchip"] == before + 1
     assert torch.equal(got, _fps_oracle(xyz, m))
-    assert torch.equal(got, fps_cuda(xyz, m))
 
 
 @pytest.mark.gpu
@@ -193,7 +118,7 @@ def test_fps_onchip_lattice_ties(cuda, b, cluster):
     got = fps_onchip_cuda(xyz, 500, cluster_size=cluster)
     want = fps_ref(xyz[:1], 500).expand(b, -1)
     assert torch.equal(got, want)
-    assert torch.equal(got, fps_cuda(xyz, 500))
+    assert torch.equal(got, fps_ref(xyz, 500))
 
 
 # every exchange a variant's plan takes: one CTA at 1000 and 1024 points
@@ -362,7 +287,7 @@ def test_ball_query_kernel_sa1_shape(cuda):
     centers take the warp-per-center path; chip_smoke.py holds the tile
     path to the plain version at SA1 for B=32 and 12."""
     xyz = _uniform((2, 40000, 3), seed=25, scale=4.0).to(cuda)
-    centers = xyz[:, fps_cuda(xyz, 2048)[0].long()].contiguous()
+    centers = xyz[:, fps_onchip_cuda(xyz, 2048)[0].long()].contiguous()
     got = ball_query_cuda(xyz, centers, 0.2, 64)
     assert torch.equal(got, ball_query_ref(xyz, centers, 0.2, 64))
 
@@ -430,31 +355,77 @@ def test_three_nn_plan(cuda):
         three_nn_plan(1, 1024, 3)
 
 
-@pytest.mark.parametrize("kernel", ["fps", "fps_cluster", "fps_onchip",
-                                    "fps_onchip_timed", "ball_query",
-                                    "three_nn"])
+@pytest.mark.parametrize("kernel", ["fps_onchip", "fps_onchip_timed",
+                                    "ball_query", "three_nn",
+                                    "fps_variant"])
 def test_wrappers_refuse_cpu_tensors(kernel):
     """A kernel wrapper never runs the plain version in its place."""
     from nesie_tpu_torch.ops.fps import fps_onchip_timed
 
     x = _uniform((1, 64, 3), seed=5)
     call = {
-        "fps": lambda: fps_cuda(x, 8),
-        "fps_cluster": lambda: fps_cluster_cuda(x, 8),
         "fps_onchip": lambda: fps_onchip_cuda(x, 8),
         "fps_onchip_timed": lambda: fps_onchip_timed(x, 8),
         "ball_query": lambda: ball_query_cuda(x, x, 0.2, 4),
         "three_nn": lambda: three_nn_cuda(x, x),
+        "fps_variant": lambda: fps_variant_cuda(x, 8, "v1"),
     }[kernel]
     with pytest.raises(ValueError, match="CUDA"):
         call()
+
+
+@pytest.mark.parametrize(
+    "edited", sorted(p.name for p in _build._CSRC.iterdir()))
+def test_an_edit_rebuilds_only_the_libraries_it_reaches(
+        tmp_path, monkeypatch, edited):
+    """Each library is named by its own sources, the headers and the
+    flags: an edit to a source moves its library's path alone (the
+    program's stays where it was when the lab's fps_variants.cu
+    changes), an edit to a header moves both."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build._CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    before = {lib: _build.library_path(lib) for lib in _build.LIBRARIES}
+    with open(csrc / edited, "a") as f:
+        f.write("// edited\n")
+    for lib, sources in _build.LIBRARIES.items():
+        moved = edited in sources or edited.endswith(".cuh")
+        assert (_build.library_path(lib) != before[lib]) == moved, lib
+
+
+def test_each_source_is_in_one_library(monkeypatch):
+    """Every csrc/*.cu is built into exactly one library; the program's
+    is the four kernels its paths launch. Calls on CPU tensors, the
+    lab's included, build neither library."""
+    from nesie_tpu_torch.ops import pointops
+
+    cu = sorted(p.name for p in _build._CSRC.glob("*.cu"))
+    owned = [s for srcs in _build.LIBRARIES.values() for s in srcs]
+    assert sorted(owned) == cu
+    assert set(_build.LIBRARIES["kernels"]) == {
+        "fps_onchip.cu", "ball_query.cu", "three_nn.cu", "decode_nms.cu"}
+    assert _build.LIBRARIES["fps_lab"] == ("fps_variants.cu",)
+    built = []
+    monkeypatch.setattr(_build, "build", lambda *a, **k: built.append((a, k)))
+    x = _uniform((2, 64, 3), seed=8)
+    idx = pointops.furthest_point_sample(x, 16)
+    pointops.ball_query(x, pointops.gather_points(x, idx), 0.3, 4)
+    pointops.three_nn(x[:, :8].contiguous(), x)
+    for name in VARIANTS:
+        assert torch.equal(fps_variants.fps_variant_ref(x, 16, name), idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        fps_variant_cuda(x, 16, "v1")
+    assert built == []
+    assert _build._lib is None and fps_variants._lib is None
 
 
 @pytest.mark.gpu
 def test_wrappers_refuse_bad_layouts(cuda):
     x = _uniform((1, 64, 3), seed=6).to(cuda)
     with pytest.raises(TypeError):
-        fps_cuda(x.double(), 8)
+        fps_onchip_cuda(x.double(), 8)
     with pytest.raises(ValueError, match="contiguous"):
         ball_query_cuda(_uniform((1, 128, 3), seed=7).to(cuda)[:, ::2], x,
                         0.2, 4)
@@ -993,7 +964,7 @@ def test_decode_and_nms_on_cpu_takes_the_plain_version():
     _build.reset_launch_counts()
     got = decode_and_nms(out, pts)
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
-    assert _build._lib is None
+    assert _build._lib is None and fps_variants._lib is None
     want, _ = keep_mask_ref(pts, bbox, got["obj_scores"],
                             got["sem_scores"].argmax(-1), 0.25, 0.05)
     assert torch.equal(got["selected"], want)

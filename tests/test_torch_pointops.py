@@ -17,7 +17,7 @@ import pytest
 import torch
 
 import nesie_tpu.ops.pointops as jpo
-from nesie_tpu_torch.ops import _build
+from nesie_tpu_torch.ops import _build, fps_variants
 from nesie_tpu_torch.ops import pointops as tpo
 
 torch.set_num_threads(1)
@@ -158,11 +158,10 @@ def test_cpu_tensors_take_plain_versions():
     tpo.ball_query(xyz, centers, 0.3, 4)
     tpo.three_nn(centers, xyz)
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
-    assert set(_build.KERNELS) == {"fps", "fps_cluster", "fps_onchip",
-                                   "fps_onchip_small", "fps_onchip_timed",
-                                   "ball_query", "three_nn", "fps_variant",
-                                   "decode_nms"}
-    assert _build._lib is None
+    assert set(_build.KERNELS) == {"fps_onchip", "fps_onchip_small",
+                                   "fps_onchip_timed", "ball_query",
+                                   "three_nn", "fps_variant", "decode_nms"}
+    assert _build._lib is None and fps_variants._lib is None
 
 
 @pytest.mark.parametrize("batch,kernel", [(1, "fps_onchip_small"),
@@ -172,7 +171,7 @@ def test_cpu_tensors_take_plain_versions():
 def test_fps_kernel_for(batch, kernel):
     """The launch count of FPS on CUDA tensors: requests and training
     steps (B <= 16) count as fps_onchip_small, the B=32 eval forward as
-    fps_onchip; fps_cluster.cu is off both paths."""
+    fps_onchip."""
     from nesie_tpu_torch.ops.fps import fps_launch_name
 
     assert fps_launch_name(batch) == kernel
