@@ -38,7 +38,13 @@ file; fails without them. In order:
    the shipped FPS's. Then each variant against its plain version, with
    both times, its plan and its ms a step;
 4. eval path: the flagship VoteNetNesie (seeded random weights, BN
-   running stats randomised) runs the batched eval forward at
+   running stats randomised); first the eval set abstraction kernel
+   (``csrc/sa_mlp.cu``: gather, three Linear + BN + ReLU layers, max over
+   K) against its plain version ``sa_mlp_ref`` on the inputs of the
+   forward's five calls (SA1-SA4, the aggregation) at B=32 and B=1,
+   within float32 reordering and bit-equal in all but a few outputs,
+   each timed as a CUDA-graph replay beside its FFMA bound; then the
+   model runs the batched eval forward at
    B=32 x 40000 x 4 and serves three ``Detector`` requests (B=1), with
    every kernel's launch count set to 0 just before and read just after;
    then one scene's GPU forward is held against the same forward on the
@@ -243,6 +249,15 @@ K2_MAIN = 1  # the shape reported in the kernels line
 # request: (what, B, proposals a scene), 4-channel clouds of N_POINTS
 DECODE_SHAPES = (("eval batch", B, 256), ("a Detector request", 1, 256))
 DECODE_THR = dict(nms_thr=0.25, score_thr=0.05)
+# the eval SA kernel (csrc/sa_mlp.cu) at the flagship's five calls, at the
+# eval batch and a request: (what, B). Its outputs are the torch path's
+# within float32 reordering of the Linears' sums through three layers
+# (SA_RTOL of the output's scale, as tests/test_torch_kernels_gpu.py
+# holds it) and, rounding as PyTorch's ops do but for cuBLAS's summation
+# order, equal to them bit for bit in at least SA_MIN_EQUAL of outputs
+SA_BATCHES = (("eval batch", B), ("a Detector request", 1))
+SA_RTOL = 1e-5
+SA_MIN_EQUAL = 0.99
 # CPU-vs-GPU rule for one scene: float outputs within atol + rtol*|x|,
 # and a proposal agrees when all its box, objectness and IoU outputs do
 ATOL = RTOL = 1e-3
@@ -270,7 +285,8 @@ RELAXED_PL = dict(obj_thr=0.3, cls_thr_base=0.0, cls_thr_scale=0.0,
                   cls_thr_cap=0.0, iou_thr_base=0.3, iou_thr_scale=0.0,
                   iou_thr_cap=0.3)
 # the kernels the eval and training paths must launch
-EVAL_KERNELS = ("fps_onchip", "fps_onchip_small", "ball_query", "three_nn")
+EVAL_KERNELS = ("fps_onchip", "fps_onchip_small", "ball_query", "three_nn",
+                "sa_mlp")
 TRAIN_KERNELS = ("fps_onchip_small", "ball_query", "three_nn")
 # the batched FPS kernel's shapes beyond the eval forward's: (B, N, M)
 ONCHIP_RAGGED = (17, N_POINTS + 1, 2048)
@@ -283,7 +299,7 @@ RUNNER = dict(n_train=16, n_val=32, eval_batch=32, data_seed=0,
               pretrain="nesie-votenet-scannet-pretrain-050",
               semi="nesie-votenet-scannet-train-050")
 RUNNER_OVER = ["optim.max_epochs=2", "data.repeat=1", "log_interval=1"]
-RUNNER_EVAL_KERNELS = ("fps_onchip",)
+RUNNER_EVAL_KERNELS = ("fps_onchip", "sa_mlp")
 SEMI_BATCH_REPS = 3
 # [saqe]: the flagship SAQE model of the shipped configs (18 classes,
 # reg_max 32, 256 proposals, jitter 0.5 with size bias 0.2), its SUN RGB-D
@@ -536,6 +552,137 @@ def decode_nms_bound(b: int, n: int, p: int):
     writes and reads the counts, writes the mask."""
     return bound(14.0 * b * n * p + 25.0 * b * p * (p - 1) / 2,
                  12.0 * b * n + (28 + 8 + 24 + 4 + 8 + 8 + 1) * b * p)
+
+
+def sa_mlp_bound(xyz, new_xyz, features, idx, widths):
+    """The eval SA kernel: one FMA a product of its three layers
+    (c + 3 -> c1 -> c2 -> c3) on each grouped row, an FMA taking a lane
+    one cycle as any other operation does; reads idx, the centres, the
+    points and their features once and the weights, writes the pooled
+    (B, M, c3)."""
+    b, m, k = idx.shape
+    c = 0 if features is None else features.shape[-1]
+    chain = [c + 3, *widths]
+    macs = sum(a * z for a, z in zip(chain, chain[1:]))
+    moved = (idx.numel() + new_xyz.numel() + xyz.shape[0] * xyz.shape[1]
+             * (3 + c) + macs + 4 * sum(widths) + b * m * widths[-1])
+    return bound(float(b * m * k * macs), 4.0 * moved)
+
+
+def sa_calls(model, points) -> list:
+    """The five ``PointSAModule`` calls of ``model(points)`` (SA1-SA4,
+    the vote aggregation): (name, module, xyz, new_xyz, features, idx)
+    each, the ball query's idx computed as the module computes it."""
+    from nesie_tpu_torch.nn.pointnet2 import PointSAModule, sample_centers
+    from nesie_tpu_torch.ops import ball_query
+
+    names = {id(m): f"SA{i + 1}"
+             for i, m in enumerate(model.backbone.SA_modules)}
+    names[id(model.bbox_head.vote_aggregation)] = "aggregation"
+    calls = []
+
+    def hook(mod, args, kwargs):
+        xyz = args[0]
+        features = args[1] if len(args) > 1 else kwargs.get("features")
+        new_xyz, _ = sample_centers(xyz, mod.num_point,
+                                    kwargs.get("indices"),
+                                    kwargs.get("target_xyz"),
+                                    mod.input_fps_ordered)
+        idx = ball_query(xyz, new_xyz, mod.radius, mod.num_sample)
+        calls.append((names[id(mod)], mod, xyz, new_xyz.contiguous(),
+                      features, idx))
+
+    hooks = [m.register_forward_pre_hook(hook, with_kwargs=True)
+             for m in model.modules() if isinstance(m, PointSAModule)]
+    try:
+        model(points)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def graph_replay(fn):
+    """``fn`` captured as a CUDA graph: its replay, so that ``time_ms``
+    reads the device's work and not the host's launches (a request's SA
+    call takes the card less time than its wrapper takes the host)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def sa_mlp_phase(model, points) -> tuple[dict, tuple, tuple]:
+    """The eval SA kernel against ``sa_mlp_ref`` on the inputs of the
+    five calls of ``model``'s eval forward, at each of ``SA_BATCHES``.
+    Returns (entries by call and batch, (max_abs_err, kernel ms, plain ms)
+    and (bound ms, bound by) of the five calls at B)."""
+    import torch
+
+    from nesie_tpu_torch.ops.sa_mlp import mlp_layers, sa_mlp_cuda, sa_mlp_ref
+
+    by_shape, totals = {}, {}
+    for what, b in SA_BATCHES:
+        sums = np.zeros(4)  # max err, kernel ms, plain ms, bound ms
+        with torch.inference_mode():
+            for name, mod, xyz, new_xyz, feats, idx in sa_calls(
+                    model, points[:b]):
+                mlp = mod.mlps[0]
+
+                def kernel(mod=mod, xyz=xyz, new_xyz=new_xyz, feats=feats,
+                           idx=idx, layers=mlp_layers(mlp)):
+                    return sa_mlp_cuda(xyz, new_xyz, feats, idx, mod.radius,
+                                       layers, mod.normalize_xyz)
+
+                def plain(mod=mod, xyz=xyz, new_xyz=new_xyz, feats=feats,
+                          idx=idx, mlp=mlp):
+                    return sa_mlp_ref(xyz, new_xyz, feats, idx, mod.radius,
+                                      mlp, mod.use_xyz, mod.normalize_xyz,
+                                      mod.pool)
+
+                got, want = kernel(), plain()
+                tag = f"{name} B={b} M={idx.shape[1]} K={idx.shape[2]}"
+                if got.shape != want.shape or not torch.isfinite(want).all():
+                    raise AssertionError(f"sa_mlp {tag}: {tuple(got.shape)} "
+                                         f"vs {tuple(want.shape)}, or "
+                                         "non-finite plain outputs")
+                scale = max(1.0, float(want.abs().max()))
+                err = float((got - want).abs().max())
+                equal = float((got == want).double().mean())
+                if not err <= SA_RTOL * scale or equal < SA_MIN_EQUAL:
+                    raise AssertionError(
+                        f"sa_mlp {tag}: max |diff| {err:.3e} (limit "
+                        f"{SA_RTOL * scale:.3e}), {equal:.6f} of outputs "
+                        f"bit-equal (need >= {SA_MIN_EQUAL})")
+                k_ms = time_ms(graph_replay(kernel), 20)
+                p_ms = time_ms(graph_replay(plain), 5)
+                widths = [layer.conv.out_features for layer in mlp]
+                b_ms, b_by = sa_mlp_bound(xyz, new_xyz, feats, idx, widths)
+                by_shape[tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                     bound_by=b_by, max_abs_err=err,
+                                     equal_share=equal)
+                print(f"[kernel] sa_mlp {tag} ({what}): within "
+                      f"{err:.3e} of plain (scale {scale:.3e}), "
+                      f"{equal:.6f} bit-equal; kernel {k_ms:.4f} ms, plain "
+                      f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); the "
+                      f"kernel at {b_ms / k_ms:.1%} of it")
+                sums[0] = max(sums[0], err)
+                sums[1:] += (k_ms, p_ms, b_ms)
+        print(f"[kernel] sa_mlp B={b} ({what}), the five calls: kernel "
+              f"{sums[1]:.4f} ms, plain {sums[2]:.4f} ms, bound "
+              f"{sums[3]:.4f} ms; the kernel at {sums[3] / sums[1]:.1%} of "
+              "it")
+        totals[b] = sums
+        torch.cuda.empty_cache()
+    err, k_ms, p_ms, b_ms = (float(v) for v in totals[B])
+    return by_shape, (err, k_ms, p_ms), (b_ms, "operations")
 
 
 def decode_case(xyz, p: int, seed: int):
@@ -985,6 +1132,7 @@ def runner_phase(dev, bare: dict) -> dict:
     print(f"[runner] launches during the runner's training path: "
           f"{launches['runner']}")
     check_launches(launches["runner"], "runner's training")
+    check_counts(launches["runner"], "runner's training", {"sa_mlp": 0})
 
     # the checkpoint the semi run wrote reloads bit for bit
     fresh = runner.init_state(cfg, runner.build_model(cfg), 1, dev)
@@ -1338,6 +1486,7 @@ def saqe_phase(dev, scenes, requests, nesie: dict) -> dict:
     # 6 semi steps (teacher + student) and 6 supervised ones
     check_launches(launches["saqe_train"], "SAQE training",
                    forwards=2 * (TIMED_STEPS + 1) + (TIMED_STEPS + 1))
+    check_counts(launches["saqe_train"], "SAQE training", {"sa_mlp": 0})
     print(f"[saqe] bare steps beside this run's Nesie steps: semi "
           f"{bare['semi_ms']:.3f} / {nesie['semi_ms']:.3f} ms "
           f"({bare['semi_ms'] / nesie['semi_ms']:.4f}), peak "
@@ -1374,6 +1523,7 @@ def saqe_phase(dev, scenes, requests, nesie: dict) -> dict:
     print(f"[saqe] launches during the SAQE CLIs' training path: "
           f"{launches['saqe_runner']}")
     check_launches(launches["saqe_runner"], "SAQE CLI training")
+    check_counts(launches["saqe_runner"], "SAQE CLI training", {"sa_mlp": 0})
     del semi_state
     torch.cuda.empty_cache()
 
@@ -1713,6 +1863,7 @@ def options_phase(dev, scenes, nesie: dict) -> dict:
     print(f"[options] launches during options_train: "
           f"{launches['options_train']}")
     check_launches(launches["options_train"], "options_train")
+    check_counts(launches["options_train"], "options_train", {"sa_mlp": 0})
     print(f"[options] semi step with teacher_jitter ({SEMI['n_labeled']} + "
           f"{SEMI['n_unlabeled']} scenes): median {tj[0]:.3f} ms, peak "
           f"{tj[1]:.3f} GiB, num_pseudo {tj[2]['num_pseudo'].item()}; this "
@@ -2210,6 +2361,7 @@ def ddp_phase(dev, scenes, nesie: dict, smi: str) -> dict:
     print(f"[ddp] launches during ddp_train (both ranks): "
           f"{launches['ddp_train']}")
     check_launches(launches["ddp_train"], "ddp_train")
+    check_counts(launches["ddp_train"], "ddp_train", {"sa_mlp": 0})
     if launches["ddp_train"]["fps_onchip"] != 0:
         raise AssertionError("ddp_train: B > 16 FPS at the per-rank batch")
     backend = {r["backend"] for r in ranks}
@@ -2298,8 +2450,10 @@ def ddp_phase(dev, scenes, nesie: dict, smi: str) -> dict:
           f"{launches['ddp_runner']}; during ddp_eval (both ranks): "
           f"{launches['ddp_eval']}")
     check_launches(launches["ddp_runner"], "ddp_runner")
+    check_counts(launches["ddp_runner"], "ddp_runner", {"sa_mlp": 0})
     check_launches(launches["ddp_eval"], "ddp_eval",
-                   need=("fps_onchip_small", "ball_query", "three_nn"))
+                   need=("fps_onchip_small", "ball_query", "three_nn",
+                         "sa_mlp"))
     if launches["ddp_eval"]["fps_onchip"] != 0:
         raise AssertionError("ddp_eval: B > 16 FPS at 16 scenes a rank")
 
@@ -4609,6 +4763,7 @@ def main() -> int:
 
     batch = np.stack([io.add_height(s) for s in scenes]).astype(np.float32)
     points = torch.from_numpy(batch).to(dev)
+    sa_ms, results["sa_mlp"], bounds["sa_mlp"] = sa_mlp_phase(model, points)
     requests = [make_scene(np.random.default_rng(100 + i), 50000)
                 for i in range(3)]
 
@@ -4636,9 +4791,11 @@ def main() -> int:
     # ----- end of the eval path
     print(f"[slice] launches during the eval path: {launches['eval']}")
     check_launches(launches["eval"], "eval", need=EVAL_KERNELS)
-    # two decodes of the batch and one a request, two launches each
+    # two decodes of the batch and one a request, two launches each; the
+    # eval SA kernel five times a forward (six of the batch, one a request)
     check_counts(launches["eval"], "eval",
-                 {"decode_nms": 2 * (2 + len(requests))})
+                 {"decode_nms": 2 * (2 + len(requests)),
+                  "sa_mlp": 5 * (6 + len(requests))})
     ms = float(np.median(times))
     print(f"[slice] eval forward B={B} x {N_POINTS} x 4: median {ms:.3f} ms "
           f"per batch over {len(times)} runs ({times}), "
@@ -4703,7 +4860,8 @@ def main() -> int:
     # ----- end of the training path
     print(f"[train] launches during the training path: {launches['train']}")
     check_launches(launches["train"], "training")
-    check_counts(launches["train"], "training", {"decode_nms": 0})
+    check_counts(launches["train"], "training",
+                 {"decode_nms": 0, "sa_mlp": 0})
 
     # ---- 6. one training step, card vs CPU ------------------------------
     gpu_vs_cpu_training_step(dev)
@@ -4763,6 +4921,9 @@ def main() -> int:
         "decode_nms": ("nesie_tpu_torch/csrc/decode_nms.cu",
                        "none (the JAX package decodes in XLA: "
                        "nesie_tpu/eval/postprocess.py)"),
+        "sa_mlp": ("nesie_tpu_torch/csrc/sa_mlp.cu",
+                   "none (the JAX package leaves the SA modules' shared "
+                   "MLP to XLA: nesie_tpu/nn/pointnet2.py PointMLP)"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -4782,6 +4943,11 @@ def main() -> int:
             entry["by_shape"] = k4_ms
         if name == "decode_nms":
             entry["by_shape"] = decode_ms
+        if name == "sa_mlp":
+            entry["role"] = ("ms, plain_ms and bound_ms: the five calls of "
+                             f"a B={B} eval forward; a launch count is a "
+                             "call (two kernels: W1's padding, the MLP)")
+            entry["by_shape"] = sa_ms
         if name in options["kernels"]:
             entry["options_by_shape"] = options["kernels"][name]
         if name in ddp["kernels"]:

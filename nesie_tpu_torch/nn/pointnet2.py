@@ -19,10 +19,18 @@ from nesie_tpu_torch.ops import (
     ball_query,
     furthest_point_sample,
     gather_points,
-    group_points,
     three_interpolate,
     three_nn,
 )
+from nesie_tpu_torch.ops.sa_mlp import (
+    group_by_index,
+    kernel_shape_ok,
+    mlp_layers,
+    pool_neighbours,
+    sa_mlp_cuda,
+    sa_mlp_ref,
+)
+from nesie_tpu_torch.utils import count
 from .layers import PointMLP
 
 
@@ -51,24 +59,8 @@ def group(xyz, new_xyz, features, radius, num_sample, use_xyz=True,
     ``normalize_xyz``, lead the grouped features with ``use_xyz`` and
     stand alone without features."""
     idx = ball_query(xyz, new_xyz, radius, num_sample)
-    grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
-    if normalize_xyz:
-        grouped_xyz = grouped_xyz / radius
-    if features is None:
-        return grouped_xyz, grouped_xyz
-    grouped = group_points(features, idx)
-    if use_xyz:
-        grouped = torch.cat([grouped_xyz, grouped], dim=-1)
-    return grouped, grouped_xyz
-
-
-def _pool(x: torch.Tensor, pool: str) -> torch.Tensor:
-    """Over the neighbourhood axis: ``"max"`` or ``"avg"``."""
-    if pool == "max":
-        return x.amax(dim=2)
-    if pool == "avg":
-        return x.mean(dim=2)
-    raise ValueError(f"pool={pool!r}: 'max' or 'avg'")
+    return group_by_index(xyz, new_xyz, features, idx, radius, use_xyz,
+                          normalize_xyz)
 
 
 def _grouped_channels(in_channels: int, use_xyz: bool) -> int:
@@ -87,6 +79,12 @@ class PointSAModule(nn.Module):
     ``input_fps_ordered``: FPS is prefix-consistent, so when the input is
     itself an FPS output in selection order, FPS(X, m) is the first m
     points and the sample is an ``arange``.
+
+    On CUDA tensors, the grouping, MLP and pool run as one kernel
+    (``ops.sa_mlp.sa_mlp_cuda``) when the module can see that the kernel
+    computes them: eval mode, no grad, float32, max pool, and widths and K
+    the kernel takes. Otherwise they run as torch ops (``sa_mlp_ref``) and
+    the call counts ``sa.unfused.<reason>`` (``unfused_reason``).
     """
 
     def __init__(self, num_point: int, radius: float, num_sample: int,
@@ -116,9 +114,41 @@ class PointSAModule(nn.Module):
         indices (B, M) int32, None with ``target_xyz``."""
         new_xyz, indices = sample_centers(xyz, self.num_point, indices,
                                           target_xyz, self.input_fps_ordered)
-        grouped, _ = group(xyz, new_xyz, features, self.radius,
-                           self.num_sample, self.use_xyz, self.normalize_xyz)
-        return new_xyz, _pool(self.mlps[0](grouped), self.pool), indices
+        idx = ball_query(xyz, new_xyz, self.radius, self.num_sample)
+        mlp = self.mlps[0]
+        if xyz.device.type == "cuda":
+            reason = self.unfused_reason(xyz, features)
+            if reason is None:
+                return new_xyz, sa_mlp_cuda(
+                    xyz, new_xyz.contiguous(), features, idx, self.radius,
+                    mlp_layers(mlp), self.normalize_xyz), indices
+            count(f"sa.unfused.{reason}")
+        return new_xyz, sa_mlp_ref(
+            xyz, new_xyz, features, idx, self.radius, mlp, self.use_xyz,
+            self.normalize_xyz, self.pool), indices
+
+    def unfused_reason(self, xyz: torch.Tensor,
+                       features: torch.Tensor | None) -> str | None:
+        """Why the kernel does not compute this call, or None:
+        ``train_mode`` (a BN takes batch statistics), ``grad`` (autograd
+        records), ``dtype`` (not float32 throughout) or ``shape`` (the
+        pool, the layers' form, their widths or K)."""
+        mlp = self.mlps[0]
+        if self.training or any(m.training for m in mlp.modules()):
+            return "train_mode"
+        if torch.is_grad_enabled():
+            return "grad"
+        if mlp.dtype is not None or any(
+                t is not None and t.dtype != torch.float32
+                for t in (xyz, features, mlp[0].conv.weight)):
+            return "dtype"
+        if not (self.pool == "max" and self.use_xyz
+                and all(m.norm == "bn" and m.act and m.conv.bias is None
+                        for m in mlp)
+                and kernel_shape_ok([m.conv.out_features for m in mlp],
+                                    self.num_sample)):
+            return "shape"
+        return None
 
 
 class PointSAModuleMSG(nn.Module):
@@ -151,7 +181,7 @@ class PointSAModuleMSG(nn.Module):
         for radius, k, mlp in zip(self.radii, self.sample_nums, self.mlps):
             grouped, _ = group(xyz, new_xyz, features, radius, k,
                                self.use_xyz, self.normalize_xyz)
-            outs.append(_pool(mlp(grouped), self.pool))
+            outs.append(pool_neighbours(mlp(grouped), self.pool))
         return new_xyz, torch.cat(outs, dim=-1), indices
 
 
@@ -202,7 +232,7 @@ class PAConvSAModule(nn.Module):
                                self.normalize_xyz)
         for layer in self.mlps[0].values():
             h = layer(h, grouped_xyz)
-        return new_xyz, _pool(h, self.pool), indices
+        return new_xyz, pool_neighbours(h, self.pool), indices
 
 
 class PointFPModule(nn.Module):

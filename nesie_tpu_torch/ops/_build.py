@@ -14,8 +14,10 @@ point takes device pointers, sizes and a stream, launches on that stream
 and returns ``cudaGetLastError()``.
 
 Every wrapper counts its launches as ``launch.<kernel>`` in the program's
-counts (``utils.count``): one per kernel launch, and nowhere else, so a
-run can show that it went through the kernels. ``launch_counts`` and
+counts (``utils.count``): one per entry-point call, and nowhere else, so
+a run can show that it went through the kernels. An entry point launches
+one kernel, but for ``nesie_sa_mlp``, whose one count stands for two
+launches (``KERNELS``' note). ``launch_counts`` and
 ``reset_launch_counts`` read and clear those.
 """
 from __future__ import annotations
@@ -42,11 +44,12 @@ _NVCC_FLAGS = [
 # each library and the csrc/*.cu it is built from; a source is in one
 LIBRARIES = {
     "kernels": ("fps_onchip.cu", "ball_query.cu", "three_nn.cu",
-                "decode_nms.cu"),
+                "decode_nms.cu", "sa_mlp.cu"),
     "fps_lab": ("fps_variants.cu",),
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # the program library's entry points: argtypes (every entry point
     # returns a cudaError_t as int)
@@ -58,15 +61,19 @@ _SIGNATURES = {
     "nesie_three_nn_plan": [_I, _I, _I, _P],
     "nesie_decode_nms_counts": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     "nesie_decode_nms_keep": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
+    "nesie_sa_mlp": [_P, _L, _L, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _F,
+                     _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 # fps_onchip counts the batches of more than 16 rows, fps_onchip_small
 # the others (ops.fps.fps_launch_name), fps_onchip_timed the
 # instrumented kernel's launches; decode_nms counts both launches of the
 # eval decode's keep mask (point counts, then NMS); fps_variant the FPS
-# lab's (ops.fps_variants)
+# lab's (ops.fps_variants); sa_mlp an eval set abstraction's fused
+# gather, MLP and pool (ops.sa_mlp): one a call, which is two launches on
+# the stream, W1's padding and then the kernel
 KERNELS = ("fps_onchip", "fps_onchip_small", "fps_onchip_timed",
-           "ball_query", "three_nn", "fps_variant", "decode_nms")
+           "ball_query", "three_nn", "fps_variant", "decode_nms", "sa_mlp")
 
 _lib = None  # the program's library, once loaded
 build_seconds = {}  # wall time of each library's nvcc build in this process

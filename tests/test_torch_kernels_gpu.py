@@ -397,7 +397,7 @@ def test_an_edit_rebuilds_only_the_libraries_it_reaches(
 
 def test_each_source_is_in_one_library(monkeypatch):
     """Every csrc/*.cu is built into exactly one library; the program's
-    is the four kernels its paths launch. Calls on CPU tensors, the
+    is the five kernels its paths launch. Calls on CPU tensors, the
     lab's included, build neither library."""
     from nesie_tpu_torch.ops import pointops
 
@@ -405,7 +405,8 @@ def test_each_source_is_in_one_library(monkeypatch):
     owned = [s for srcs in _build.LIBRARIES.values() for s in srcs]
     assert sorted(owned) == cu
     assert set(_build.LIBRARIES["kernels"]) == {
-        "fps_onchip.cu", "ball_query.cu", "three_nn.cu", "decode_nms.cu"}
+        "fps_onchip.cu", "ball_query.cu", "three_nn.cu", "decode_nms.cu",
+        "sa_mlp.cu"}
     assert _build.LIBRARIES["fps_lab"] == ("fps_variants.cu",)
     built = []
     monkeypatch.setattr(_build, "build", lambda *a, **k: built.append((a, k)))
@@ -980,3 +981,295 @@ def test_box_minmax_is_box_corners_minmax(shape):
                       torch.rand(*shape[:-1], 3, generator=g) * 2,
                       torch.rand(*shape[:-1], 1, generator=g) * 7 - 3.5], -1)
     assert torch.equal(box_minmax(bbox), corners_minmax(box_corners(bbox)))
+
+
+# ---- the eval set abstraction's gather, MLP and pool (csrc/sa_mlp.cu) ----
+
+# (N, M, K, C, widths, radius) of the five PointSAModule calls of an eval
+# forward; the Nesie and SAQE configurations share them
+SA_CALLS = {
+    "sa1": (40000, 2048, 64, 1, (64, 64, 128), 0.2),
+    "sa2": (2048, 1024, 32, 128, (128, 128, 256), 0.4),
+    "sa3": (1024, 512, 16, 256, (128, 128, 256), 0.8),
+    "sa4": (512, 256, 16, 256, (128, 128, 256), 1.2),
+    "agg": (1024, 256, 16, 256, (128, 128, 128), 0.3),
+}
+# float32 sums of up to 259 products in another order, through three
+# layers, at the output's scale: ~100 ulp
+SA_RTOL = 1e-5
+
+
+def _sa_case(call, b, dev, seed=0):
+    """A call's inputs on ``dev``: points spread over a room (many balls
+    hold fewer than K, so the ball query fills duplicates), SA1's single
+    feature channel as a strided view of (B, N, 4) points, an MLP with
+    lecun-normal weights and BN statistics away from 0 and 1, in eval.
+    Returns (xyz, new_xyz, features, idx, radius, mlp)."""
+    from nesie_tpu_torch.nn.detector import init_weights_flax_, randomize_bn_
+    from nesie_tpu_torch.nn.layers import PointMLP
+
+    n, m, k, c, widths, radius = SA_CALLS[call]
+    rng = np.random.default_rng(seed)
+    room = np.array([7.0, 6.0, 3.0], np.float32)
+    xyz = rng.uniform(size=(b, n, 3)).astype(np.float32) * room
+    if c == 1:
+        pts = np.concatenate([xyz, xyz[..., 2:]], -1)
+        pts = torch.from_numpy(pts).to(dev)
+        xyz_t, feats = pts[..., :3], pts[..., 3:]
+    else:
+        xyz_t = torch.from_numpy(xyz).to(dev)
+        feats = torch.from_numpy(
+            rng.standard_normal((b, n, c)).astype(np.float32)).to(dev)
+    new_xyz = xyz_t[:, :m].contiguous()
+    idx = ball_query_cuda(xyz_t.contiguous(), new_xyz, radius, k)
+    mlp = PointMLP(c + 3, widths)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        init_weights_flax_(mlp, g)
+        randomize_bn_(mlp, g)
+    return xyz_t, new_xyz, feats, idx, radius, mlp.to(dev).eval()
+
+
+def _sa_check(xyz, new_xyz, feats, idx, radius, mlp, normalize=True):
+    from nesie_tpu_torch.ops.sa_mlp import mlp_layers, sa_mlp_cuda, sa_mlp_ref
+
+    with torch.inference_mode():
+        before = _build.launch_counts()["sa_mlp"]
+        got = sa_mlp_cuda(xyz, new_xyz, feats, idx, radius, mlp_layers(mlp),
+                          normalize)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["sa_mlp"] == before + 1
+        want = sa_mlp_ref(xyz, new_xyz, feats, idx, radius, mlp,
+                          normalize_xyz=normalize)
+    assert got.shape == want.shape and torch.isfinite(want).all()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= SA_RTOL * scale
+    return got, want
+
+
+def _sa_cases():
+    return ([(call, b) for call in SA_CALLS for b in (1, 2)]
+            + [("sa1", 32)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call,b", _sa_cases())
+def test_sa_mlp_kernel_matches_plain(cuda, call, b):
+    """Each eval call shape at B=1 and 2 (the small grids take the 64- and
+    32-row tiles) and SA1 at B=32, with duplicate-filled neighbourhoods
+    and BN statistics away from 0 and 1."""
+    case = _sa_case(call, b, cuda, seed=b)
+    # some centres hold fewer than K points: their slots repeat
+    assert (case[3][..., -1] == case[3][..., 0]).any()
+    got, want = _sa_check(*case)
+    # the kernel rounds as PyTorch's ops do, cuBLAS's sums aside
+    assert (got == want).float().mean() > 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["strided_c128", "c64", "no_features",
+                                  "unnormalized"])
+def test_sa_mlp_kernel_other_forms(cuda, form):
+    """The instantiations the eval calls leave out: 128-wide feature rows
+    that are not 16-byte aligned (4-byte copies), 64 hidden channels over
+    64 features (the segmentor's SA2), no features (the relative xyz
+    alone), and offsets not divided by the radius."""
+    from nesie_tpu_torch.nn.detector import init_weights_flax_, randomize_bn_
+    from nesie_tpu_torch.nn.layers import PointMLP
+
+    xyz, new_xyz, feats, idx, radius, mlp = _sa_case("sa3", 2, cuda, seed=9)
+    normalize = form != "unnormalized"
+    if form in ("strided_c128", "c64", "no_features"):
+        c, widths = {"strided_c128": (128, (128, 128, 256)),
+                     "c64": (64, (64, 64, 128)),
+                     "no_features": (0, (64, 64, 128))}[form]
+        g = torch.Generator().manual_seed(3)
+        big = torch.randn(*feats.shape[:2], c + 1, generator=g).to(cuda)
+        feats = big[..., 1:] if c else None
+        mlp = PointMLP(c + 3, widths)
+        with torch.no_grad():
+            init_weights_flax_(mlp, g)
+            randomize_bn_(mlp, g)
+        mlp = mlp.to(cuda).eval()
+    _sa_check(xyz, new_xyz, feats, idx, radius, mlp, normalize)
+
+
+def _room_points(b, seed, dev):
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(size=(b, 40000, 3)).astype(np.float32)
+    xyz *= np.array([7.0, 6.0, 3.0], np.float32)
+    pts = np.concatenate([xyz, xyz[..., 2:]], -1)
+    return torch.from_numpy(pts).to(dev)
+
+
+def _flagship(dev):
+    from nesie_tpu_torch.nn.detector import (
+        VoteNetNesie,
+        init_weights_flax_,
+        randomize_bn_,
+    )
+
+    model = VoteNetNesie()
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        init_weights_flax_(model, g)
+        randomize_bn_(model, g)
+    return model.to(dev)
+
+
+@pytest.mark.gpu
+def test_sa_module_takes_the_kernel_in_eval_only(cuda):
+    """An eval forward under inference_mode launches the kernel for its
+    five SA calls and counts no unfused call; the teacher (train-mode BN
+    under frozen_bn_stats, no grad) and an eval forward with grad launch
+    none, each call counting its reason. The kernel's forward equals the
+    torch path's within float32 reordering."""
+    from nesie_tpu_torch import utils
+    from nesie_tpu_torch.nn.layers import frozen_bn_stats
+
+    model = _flagship(cuda).eval()
+    pts = _room_points(2, 5, cuda)
+
+    def run(grad=False, train=False):
+        _build.reset_launch_counts()
+        utils.reset_counts("sa.unfused.")
+        model.train(train)
+        ctx = torch.enable_grad() if grad else torch.inference_mode()
+        with ctx, frozen_bn_stats(model):
+            out = model(pts, "seed")
+        return (_build.launch_counts()["sa_mlp"],
+                utils.counts("sa.unfused."), out)
+
+    launched, unfused, fused = run()
+    assert launched == 5 and unfused == {}
+    assert run(train=True)[:2] == (0, {"sa.unfused.train_mode": 5})
+    launched, unfused, plain = run(grad=True)
+    assert (launched, unfused) == (0, {"sa.unfused.grad": 5})
+    for key in ("obj_scores", "sem_scores", "bbox_preds"):
+        want = plain[key].detach()
+        scale = max(1.0, float(want.abs().max()))
+        assert float((fused[key] - want).abs().max()) <= 1e-4 * scale, key
+
+
+@pytest.mark.gpu
+def test_sa_mlp_in_a_replayed_graph(cuda):
+    """A ``graphs.FpsSplitGraph`` capture of the B=1 eval forward takes
+    the kernel (launches and all) and a replay on new points gives the
+    eager forward's result bit for bit."""
+    from nesie_tpu_torch.graphs import FpsSplitGraph
+
+    model = _flagship(cuda).eval()
+    pts = _room_points(1, 6, cuda)
+    with torch.inference_mode():
+        model(pts, "seed")  # eager first, as the Detector runs
+        graph = FpsSplitGraph(cuda)
+        out = graph.capture(lambda: model(pts, "seed")["obj_scores"])
+        pts.copy_(_room_points(1, 7, cuda))
+        _build.reset_launch_counts()
+        graph.replay()
+        replayed = _build.launch_counts()
+        got = out.clone()
+        _build.reset_launch_counts()
+        want = model(pts, "seed")["obj_scores"]
+        assert _build.launch_counts() == replayed
+    assert replayed["sa_mlp"] == 5
+    assert torch.equal(got, want)
+
+
+def test_sa_mlp_wrapper_refuses_cpu_tensors_and_shapes():
+    """The wrapper launches or raises: CPU tensors and widths or K the
+    kernel does not take raise; ``kernel_shape_ok`` names the latter."""
+    from nesie_tpu_torch.ops.sa_mlp import kernel_shape_ok, sa_mlp_cuda
+
+    xyz = _uniform((1, 64, 3), seed=5)
+    idx = torch.zeros((1, 8, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        sa_mlp_cuda(xyz, xyz[:, :8].contiguous(), None, idx, 0.2, [], True)
+    assert kernel_shape_ok((64, 64, 128), 64)
+    assert kernel_shape_ok((128, 128, 256), 16)
+    assert kernel_shape_ok((128, 128, 128), 8)
+    for widths, k in (((32, 32, 64), 32), ((128, 64, 128), 16),
+                      ((128, 128, 64), 16), ((128, 128, 256), 12),
+                      ((128, 128, 256), 4), ((64, 128), 16),
+                      ((256, 256, 512), 32)):
+        assert not kernel_shape_ok(widths, k), (widths, k)
+
+
+def _old_sa_forward(mod, xyz, features):
+    """PointSAModule's forward as it was before the kernel: ball query,
+    gather, concatenate, the MLP, the max (or mean) over K."""
+    from nesie_tpu_torch.nn.pointnet2 import sample_centers
+    from nesie_tpu_torch.ops import ball_query, group_points
+
+    new_xyz, indices = sample_centers(xyz, mod.num_point, None, None,
+                                      mod.input_fps_ordered)
+    idx = ball_query(xyz, new_xyz, mod.radius, mod.num_sample)
+    grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    if mod.normalize_xyz:
+        grouped_xyz = grouped_xyz / mod.radius
+    grouped = grouped_xyz
+    if features is not None:
+        grouped = group_points(features, idx)
+        if mod.use_xyz:
+            grouped = torch.cat([grouped_xyz, grouped], dim=-1)
+    h = mod.mlps[0](grouped)
+    return new_xyz, h.amax(dim=2) if mod.pool == "max" else h.mean(dim=2)
+
+
+@pytest.mark.parametrize("c,normalize,pool,train", [
+    (1, True, "max", False), (5, False, "max", False), (0, True, "avg", False),
+    (4, True, "max", True)])
+def test_sa_module_plain_path_is_the_old_path(c, normalize, pool, train):
+    """On the CPU the module runs the plain version, which is the old
+    forward bit for bit, and counts neither a launch nor an unfused call
+    (only CUDA calls count their reason)."""
+    from nesie_tpu_torch import utils
+    from nesie_tpu_torch.nn.detector import init_weights_flax_, randomize_bn_
+    from nesie_tpu_torch.nn.pointnet2 import PointSAModule
+
+    g = torch.Generator().manual_seed(c)
+    pts = torch.rand(2, 300, 3 + max(c, 1), generator=g) * 2
+    xyz, feats = pts[..., :3], (pts[..., 3:3 + c] if c else None)
+    mod = PointSAModule(32, 0.4, 8, c, (16, 16, 24), normalize_xyz=normalize,
+                        pool=pool)
+    with torch.no_grad():
+        init_weights_flax_(mod, g)
+        randomize_bn_(mod, g)
+    mod.train(train)
+    _build.reset_launch_counts()
+    before = utils.counts("sa.unfused.")
+    with torch.no_grad():
+        want = _old_sa_forward(mod, xyz, feats)
+        got = mod(xyz, feats)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _build.launch_counts()["sa_mlp"] == 0
+    assert utils.counts("sa.unfused.") == before
+
+
+def test_sa_module_unfused_reasons():
+    """``unfused_reason`` as the module sees it, in the order train mode,
+    grad, dtype, shape; None where the kernel takes the call."""
+    from nesie_tpu_torch.nn.pointnet2 import PointSAModule
+
+    xyz, feats = torch.zeros(1, 8, 3), torch.zeros(1, 8, 128)
+    mod = PointSAModule(4, 0.4, 16, 128, (128, 128, 256))
+    with torch.no_grad():
+        assert mod.unfused_reason(xyz, feats) == "train_mode"
+        mod.eval()
+        assert mod.unfused_reason(xyz, feats) is None
+        mod.mlps[0].layer1.bn.train()
+        assert mod.unfused_reason(xyz, feats) == "train_mode"
+        mod.eval()
+        assert mod.unfused_reason(xyz, feats.double()) == "dtype"
+        assert PointSAModule(4, 0.4, 16, 128, (128, 128, 256),
+                             dtype=torch.bfloat16).eval().unfused_reason(
+            xyz, feats) == "dtype"
+        assert PointSAModule(4, 0.4, 16, 128, (128, 128, 256)).double(
+        ).eval().unfused_reason(xyz, feats) == "dtype"
+        for kw in (dict(pool="avg"), dict(use_xyz=False),
+                   dict(num_sample=12), dict(mlp_channels=(64, 64, 64))):
+            args = dict(num_point=4, radius=0.4, num_sample=16,
+                        in_channels=128, mlp_channels=(128, 128, 256))
+            other = PointSAModule(**{**args, **kw}).eval()
+            assert other.unfused_reason(xyz, feats) == "shape", kw
+    assert mod.unfused_reason(xyz, feats) == "grad"

@@ -160,7 +160,8 @@ def test_cpu_tensors_take_plain_versions():
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
     assert set(_build.KERNELS) == {"fps_onchip", "fps_onchip_small",
                                    "fps_onchip_timed", "ball_query",
-                                   "three_nn", "fps_variant", "decode_nms"}
+                                   "three_nn", "fps_variant", "decode_nms",
+                                   "sa_mlp"}
     assert _build._lib is None and fps_variants._lib is None
 
 
